@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper and their PyTorch wrappers.
+
+Each module holds one kernel's wrapper, its plain PyTorch version and a launch
+counter; `_build.py` compiles `csrc/*.cu` with nvcc on first use. Nothing is
+built or loaded when a module is imported.
+"""
+
+KERNELS = ("embedding_bag", "grouped_topk")   # csrc/<name>.cu

@@ -1,0 +1,230 @@
+"""The embedding engine: packed stacked tables + fused lookup/pooling,
+forward only (the counterpart of `recommendflow_tpu/ops/embedding.py`).
+
+  * All tables of equal dim are stacked row-wise into ONE logical
+    [total_rows, dim] array per dim group (schema.TableGroup): one gather per
+    group per batch.
+  * Tables keep the JAX package's STORED layout [R/P, P*dim] (P logical rows
+    per 512-byte physical row), so weights carry across unchanged
+    (interop.py). On this card the packed layout is just a row-major reshape
+    of [R, dim]: a lookup gathers logical rows of `table.view(-1, dim)` at the
+    global ids — bit-identical to the JAX wide-row take followed by the
+    one-hot segment select, and 128 bytes read per id instead of 512.
+  * The gather is kernel 1 (ops/cuda/embedding_bag.py); masked pooling stays
+    in torch.
+  * Hashing features own two stacked branches (double hashing); pooled branch
+    outputs concatenate to 2*dim.
+  * id 0 of every member table is the pad/OOV row, zero-initialized and
+    masked out of pooling.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from recommendflow_tpu_torch.config.proto import FeaturePooling
+from recommendflow_tpu_torch.data.schema import (BatchSchema, FeatureSlot,
+                                                 TableGroup)
+from recommendflow_tpu_torch.ops.cuda.embedding_bag import gather_rows
+
+NEG_INF = -1e9
+POS_INF = 1e9
+ROW_BYTES = 512        # physical-row packing of the stored layout
+SHARD_MULTIPLE = 256   # physical rows padded to a multiple of this
+
+DType = Union[str, torch.dtype]
+
+
+def torch_dtype(dtype: DType) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[str(dtype)]
+
+
+def pack_factor(dim: int, dtype: DType = torch.float32) -> int:
+    """Logical rows per stored row: the minor dim is packed up to 512 bytes
+    (128 f32 / 256 bf16 elements) when dim divides that lane count, else 1."""
+    lanes = ROW_BYTES // torch.empty((), dtype=torch_dtype(dtype)).element_size()
+    if dim < lanes and lanes % dim == 0:
+        return lanes // dim
+    return 1
+
+
+def padded_rows(group: TableGroup, dtype: DType = torch.float32) -> int:
+    """Logical rows padded so the stored row count is a multiple of
+    SHARD_MULTIPLE (the JAX package's sharding rule; kept so the stored
+    shapes match)."""
+    p = pack_factor(group.dim, dtype)
+    phys = -(-group.total_rows // p)
+    phys = -(-phys // SHARD_MULTIPLE) * SHARD_MULTIPLE
+    return phys * p
+
+
+def table_shape(group: TableGroup, dtype: DType = torch.float32
+                ) -> Tuple[int, int]:
+    """Stored (packed) shape of a dim group's stacked table."""
+    p = pack_factor(group.dim, dtype)
+    return (padded_rows(group, dtype) // p, p * group.dim)
+
+
+def init_group_table(generator: torch.Generator, group: TableGroup,
+                     dtype: DType = torch.float32, scale: float = 0.05,
+                     device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """One dim group's stacked table in the stored layout: U[-scale, scale)
+    with each member table's pad row zeroed. `generator` must live on
+    `device`; its numbers differ from jax.random's for the same seed."""
+    dtype = torch_dtype(dtype)
+    rows = padded_rows(group, dtype)
+    flat = torch.empty((rows, group.dim), dtype=dtype, device=device)
+    flat.uniform_(-scale, scale, generator=generator)
+    pad_rows_idx = torch.as_tensor(group.offsets, dtype=torch.long,
+                                   device=device)
+    flat[pad_rows_idx] = 0
+    p = pack_factor(group.dim, dtype)
+    return flat.view(rows // p, p * group.dim)
+
+
+def gather_group(table: torch.Tensor, group: TableGroup,
+                 global_ids: torch.Tensor) -> torch.Tensor:
+    """Gather logical rows from a stored stacked table.
+
+    table: [rows/P, P*dim] (P read from the stored shape); global_ids: any int
+    shape -> [..., dim] f32, cast after the gather so compute downstream is
+    full precision."""
+    dim = group.dim
+    flat = global_ids.reshape(-1).to(torch.int32).contiguous()
+    rows = gather_rows(table.view(-1, dim), flat)
+    return rows.view(tuple(global_ids.shape) + (dim,)).float()
+
+
+def _global_ids(schema: BatchSchema, slot: FeatureSlot,
+                ids: torch.Tensor) -> torch.Tensor:
+    group = schema.groups[slot.dim]
+    offs = torch.as_tensor([group.offset_of(slot.name, h)
+                            for h in range(slot.num_hashes)],
+                           dtype=ids.dtype, device=ids.device)
+    return ids + offs[None, :, None]
+
+
+def _fused_ids(schema: BatchSchema, group_slots, batch):
+    """The fused id layout embed_batch gathers with: per-slot global ids
+    flattened to [B, H*L] and concatenated."""
+    gids = [_global_ids(schema, s, batch[s.name]).reshape(
+        batch[s.name].shape[0], -1) for s in group_slots]     # [B, H*L]
+    return [g.shape[1] for g in gids], torch.cat(gids, dim=1)
+
+
+def _sparse_by_dim(slots: Sequence[FeatureSlot], exclude: Sequence[str] = ()
+                   ) -> Dict[int, List[FeatureSlot]]:
+    by_dim: Dict[int, List[FeatureSlot]] = {}
+    for slot in slots:
+        if slot.name not in exclude and slot.kind == "sparse":
+            by_dim.setdefault(slot.dim, []).append(slot)
+    return by_dim
+
+
+def _slots(schema: BatchSchema, tower: Optional[str]) -> List[FeatureSlot]:
+    return schema.tower_slots(tower) if tower else \
+        [schema.slots[n] for n in schema.order]
+
+
+def fused_group_ids(schema: BatchSchema, batch: Dict[str, torch.Tensor],
+                    tower: Optional[str] = None,
+                    exclude: Sequence[str] = ()) -> Dict[int, torch.Tensor]:
+    """{dim: fused global ids [B, sum(H*L)]} for every sparse dim group."""
+    return {dim: _fused_ids(schema, group_slots, batch)[1]
+            for dim, group_slots in
+            _sparse_by_dim(_slots(schema, tower), exclude).items()}
+
+
+def physical_ids(table: torch.Tensor, dim: int,
+                 fused: torch.Tensor) -> torch.Tensor:
+    """Flat stored-row indices for a fused global-id array."""
+    p = table.shape[1] // dim
+    flat = fused.reshape(-1)
+    return flat // p if p > 1 else flat
+
+
+def pool_sequence(emb: torch.Tensor, mask: torch.Tensor,
+                  pooling: FeaturePooling) -> torch.Tensor:
+    """Masked combine over the length axis.
+
+    emb: [..., L, D]; mask: [..., L] bool. Returns [..., D] (or [..., L, D]
+    for Null)."""
+    m = mask[..., None].to(emb.dtype)
+    if pooling == FeaturePooling.Null:
+        return emb * m
+    if pooling == FeaturePooling.Cls:
+        return emb[..., 0, :] * m[..., 0, :]
+    any_valid = mask.any(dim=-1)[..., None].to(emb.dtype)
+    if pooling == FeaturePooling.First:
+        # first VALID position: lookup/hashing misses leave pad holes in
+        # place, so an OOV at position 0 must not zero a later valid value
+        idx = mask.to(torch.int8).argmax(dim=-1)
+        out = torch.gather(emb, -2, idx[..., None, None].expand(
+            emb.shape[:-2] + (1, emb.shape[-1])))
+        return out[..., 0, :] * any_valid
+    if pooling == FeaturePooling.Last:
+        pos = torch.arange(emb.shape[-2], device=emb.device)
+        idx = torch.where(mask, pos, torch.zeros_like(pos)).amax(dim=-1)
+        out = torch.gather(emb, -2, idx[..., None, None].expand(
+            emb.shape[:-2] + (1, emb.shape[-1])))
+        return out[..., 0, :] * any_valid
+    if pooling == FeaturePooling.Sum:
+        return torch.sum(emb * m, dim=-2)
+    if pooling == FeaturePooling.Avg:
+        denom = torch.clamp(m.sum(dim=-2), min=1.0)
+        return torch.sum(emb * m, dim=-2) / denom
+    if pooling == FeaturePooling.Max:
+        return torch.where(mask[..., None], emb,
+                           torch.full_like(emb, NEG_INF)).amax(dim=-2) * any_valid
+    if pooling == FeaturePooling.Min:
+        return torch.where(mask[..., None], emb,
+                           torch.full_like(emb, POS_INF)).amin(dim=-2) * any_valid
+    raise ValueError(f"unsupported pooling {pooling}")
+
+
+def embed_batch(params: Dict[str, torch.Tensor], schema: BatchSchema,
+                batch: Dict[str, torch.Tensor],
+                tower: Optional[str] = None,
+                exclude: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+    """All sparse features of a batch (optionally one tower) -> pooled dict.
+
+    Features sharing a dim group are gathered in ONE fused gather per group
+    (ids concatenated along a flat axis, results split back). `params` maps
+    'dim{d}' to the stored tables."""
+    out: Dict[str, torch.Tensor] = {}
+    slots = _slots(schema, tower)
+    for slot in slots:
+        if slot.name in exclude:
+            continue
+        if slot.kind in ("dense", "embedding"):
+            out[slot.name] = batch[slot.name].float()
+        elif slot.kind in ("image", "token", "bert"):
+            raise NotImplementedError(
+                f"feature '{slot.name}' ({slot.kind}) needs an encoder that "
+                f"recommendflow_tpu_torch does not have yet")
+
+    for dim, group_slots in _sparse_by_dim(slots, exclude).items():
+        group = schema.groups[dim]
+        sizes, fused = _fused_ids(schema, group_slots, batch)  # [B, sum(HL)]
+        emb = gather_group(params[f"dim{dim}"], group, fused)  # [B, sum, dim]
+        offset = 0
+        for s, size in zip(group_slots, sizes):
+            ids = batch[s.name]
+            e = emb[:, offset:offset + size, :].reshape(
+                ids.shape[0], s.num_hashes, s.max_len, dim)
+            offset += size
+            pooled = pool_sequence(e, ids > 0, s.pooling)
+            out[s.name] = pooled.reshape(ids.shape[0], -1)
+    return out
+
+
+def concat_tower(features: Dict[str, torch.Tensor], schema: BatchSchema,
+                 tower: str) -> torch.Tensor:
+    """Deterministic-order concat of a tower's pooled features -> [B, D]."""
+    parts = [features[s.name] for s in schema.tower_slots(tower)
+             if s.name in features]
+    return torch.cat(parts, dim=-1)
