@@ -5,26 +5,56 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-  1. build     nvcc-builds every kernel of csrc/ (one process per source,
-               started together) and reports build time and ptxas usage;
-  2. kernel1   gather_rows against its plain version on the bench_recall
-               dim-64 table (770 MB bf16) at one batch's 87,040 ids: bitwise;
-  3. kernel2   grouped_score_max against its plain version at Q = 4096,
-               N_pad = 1,048,576, D = 128: f32 ip, bf16 corpus, f32 l2;
-               max abs diff <= 1e-4 (f32 sums in another order);
-  4. slice     Dssm at the full width of conf/bench_recall.yaml (random
-               weights from a seed): predict 1,048,576 synthetic rows at batch
-               1024, build the eval corpus, search 4096 user vectors with
-               FlatSearcher(metric="cos") at topk [10, 100]; the top-100 must
-               agree with a plain matmul + topk (scores within 1e-5, indices
-               equal except among scores within 1e-5); both kernels' launch
-               counts over this run must be > 0;
-  5. cli       cli/evaluate and cli/predict on a few thousand
-               conf/demo_recall.yaml records written by the port, the second
-               with weights carried through an interop .npz;
-  6. times     median of >= 20 CUDA-event timings of each kernel, its plain
-               version and one PyTorch library call, at the phase-2/3 shapes,
-               beside the least time the card could take.
+  1. build                  nvcc-builds every kernel of csrc/ (one process per
+                            source, started together) and reports build time
+                            and ptxas usage;
+  2. gather_rows            against its plain version on the bench_recall
+                            dim-64 table (770 MB bf16) at one batch's 87,040
+                            ids: bitwise;
+  3. grouped_score_max      against its plain version at Q = 4096,
+                            N_pad = 1,048,576, D = 128: f32 ip, bf16 corpus,
+                            f32 l2; max abs diff <= 1e-4 (f32 sums in another
+                            order);
+  4. scatter_add_rows       one batch's stored-row gradients (87,040 rows of
+                            the [1,505,024, 256] bf16 table, duplicates summed)
+                            into a zero table: bitwise;
+  5. rowwise_adagrad_update that table gradient applied to the table: p
+                            bitwise (the same f32 operations in the same
+                            order, one rounding), acc within rtol 1e-6 (the
+                            mean is summed in another order), untouched rows
+                            bitwise;
+  6. sparse_adagrad_apply   the same step from the compacted f32 sums: the
+                            same tolerances;
+  7. slice                  Dssm at the full width of conf/bench_recall.yaml
+                            (random weights from a seed): predict 1,048,576
+                            synthetic rows at batch 1024, build the eval
+                            corpus, search 4096 user vectors with
+                            FlatSearcher(metric="cos") at topk [10, 100]; the
+                            top-100 must agree with a plain matmul + topk
+                            (scores within 1e-5, indices equal except among
+                            scores within 1e-5); gather_rows and
+                            grouped_score_max must have launched;
+  8. train                  Trainer.fit on the same model (the config's
+                            dropout, batches of 1024): split path with
+                            strategy "dense", then "sparse_set", then
+                            table_update="dense", ending with the recall
+                            evaluation; finite losses, every kernel of the
+                            path launched; then one more step per split
+                            strategy whose table update is redone through
+                            the plain versions on the same row gradients
+                            (both under torch's deterministic algorithms, so
+                            the duplicate sums add in one order: p bitwise,
+                            acc within rtol 1e-6, untouched rows bitwise);
+  9. cli                    cli/evaluate and cli/predict on a few thousand
+                            conf/demo_recall.yaml records written by the
+                            port, the second with weights carried through an
+                            interop .npz; then cli/train --train_mode test
+                            and cli/predict on the checkpoint it saved;
+ 10. times                  median of >= 20 CUDA-event timings of each kernel,
+                            its plain version and one PyTorch library call
+                            where one computes the same function, at the
+                            phase 2-6 shapes, beside the least time the card
+                            could take.
 
 Then the kernels' JSON line, the card's name and power limit, and the last
 line {"ok": true, "device": {...}}. With no CUDA device it exits non-zero and
@@ -45,7 +75,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_CONF = os.path.join(ROOT, "conf", "bench_recall.yaml")
 DEMO_CONF = os.path.join(ROOT, "conf", "demo_recall.yaml")
-PHASES = ("build", "kernel1", "kernel2", "slice", "cli", "times")
+PHASES = ("build", "gather_rows", "grouped_score_max", "scatter_add_rows",
+          "rowwise_adagrad_update", "sparse_adagrad_apply", "slice", "train",
+          "cli", "times")
+KERNEL_PHASES = PHASES[1:6]
 
 # published peaks (NVIDIA data sheets, dense, at the full power limit):
 # memory bytes/s and FP32 flop/s outside the tensor cores
@@ -59,7 +92,21 @@ KERNEL_META = {
     "grouped_score_max": dict(
         route="cuda", source="recommendflow_tpu_torch/csrc/grouped_topk.cu",
         replaces="recommendflow_tpu/ops/pallas/grouped_topk.py:67"),
+    "scatter_add_rows": dict(
+        route="cuda", source="recommendflow_tpu_torch/csrc/embedding_bag.cu",
+        replaces="recommendflow_tpu/ops/pallas/embedding_bag.py:229"),
+    "rowwise_adagrad_update": dict(
+        route="cuda", source="recommendflow_tpu_torch/csrc/table_update.cu",
+        replaces="recommendflow_tpu/ops/pallas/table_update.py:56"),
+    "sparse_adagrad_apply": dict(
+        route="cuda", source="recommendflow_tpu_torch/csrc/sparse_apply.cu",
+        replaces="recommendflow_tpu/ops/pallas/sparse_apply.py:92"),
 }
+# the path each kernel's launches are counted on
+KERNEL_PATH = {"gather_rows": "slice", "grouped_score_max": "slice",
+               "scatter_add_rows": "train", "rowwise_adagrad_update": "train",
+               "sparse_adagrad_apply": "train"}
+LR = 0.03   # the table learning rate of the bench config (default_table_lr)
 
 
 def emit(obj) -> None:
@@ -69,6 +116,45 @@ def emit(obj) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def ulps(torch, a, b) -> float:
+    """Largest |a - b| of two f32 or bf16 tensors in units of their type's
+    spacing at max(|a|, |b|): a difference of one rounding is <= 1 however
+    close to zero the values are."""
+    if a.numel() == 0:
+        return 0.0
+    bits = 7 if a.dtype == torch.bfloat16 else 23
+    a32, b32 = a.float(), b.float()
+    mag = torch.maximum(a32.abs(), b32.abs()).clamp(min=2.0 ** -126)
+    spacing = torch.exp2(torch.floor(torch.log2(mag)) - bits)
+    return float(((a32 - b32).abs() / spacing).max())
+
+
+def rel_err(x, ref) -> float:
+    return float(((x - ref).abs() / ref.abs().clamp(min=1e-30)).max()) \
+        if x.numel() else 0.0
+
+
+def check_table_update(torch, what, p, acc, p_ref, acc_ref, p0, acc0, touched):
+    """A table update against its reference: p bitwise, acc within rtol
+    1e-6, untouched rows (touched: bool [R]) bitwise as they were."""
+    err = {"p_ulps": ulps(torch, p, p_ref),
+           "p_max_abs_err": float((p.float() - p_ref.float()).abs().max()),
+           "acc_rel_err": rel_err(acc, acc_ref),
+           "touched_rows": int(touched.sum())}
+    keep = ~touched
+    same = bool(torch.equal(p[keep].view(torch.int16 if p.dtype == torch.bfloat16
+                                         else torch.int32),
+                            p0[keep].view(torch.int16 if p.dtype == torch.bfloat16
+                                          else torch.int32))
+                and torch.equal(acc[keep], acc0[keep]))
+    err["untouched_bitwise"] = same
+    require(err["p_ulps"] == 0, f"{what}: p differs by {err['p_ulps']} ulps")
+    require(err["acc_rel_err"] <= 1e-6, f"{what}: acc rel err "
+            f"{err['acc_rel_err']}")
+    require(same, f"{what}: an untouched row changed")
+    return err
 
 
 def card_peaks(name: str):
@@ -136,8 +222,10 @@ def main(argv=None) -> int:
                                                  save_variables_npz)
     from recommendflow_tpu_torch.models.base import build_network
     from recommendflow_tpu_torch.ops.cuda import KERNELS, _build
-    from recommendflow_tpu_torch.ops.cuda import embedding_bag as k1
-    from recommendflow_tpu_torch.ops.cuda import grouped_topk as k2
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as k_rows
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk as k_scan
+    from recommendflow_tpu_torch.ops.cuda import sparse_apply as k_sparse
+    from recommendflow_tpu_torch.ops.cuda import table_update as k_dense
     from recommendflow_tpu_torch.ops.embedding import fused_group_ids
     from recommendflow_tpu_torch.retrieval.eval import (
         batch_compute_recall_score, build_eval_corpus)
@@ -169,7 +257,7 @@ def main(argv=None) -> int:
         log("build", wall_s=time.perf_counter() - t0, per_kernel_s=secs,
             ptxas=ptxas)
 
-    # ------------------------------------------------- shared inputs (2, 6)
+    # --------------------------------------------- shared inputs (2-6, 10)
     bench_conf = Configuration(BENCH_CONF)
     schema = compile_schema(bench_conf.features)
     group64 = schema.groups[64]
@@ -177,6 +265,9 @@ def main(argv=None) -> int:
     rows64 = -(-rows64 // 1024) * 1024
     table64 = torch.randn((rows64, 64), generator=gen, device=dev
                           ).to(torch.bfloat16)
+    # the same table in its stored layout [R/4, 256]: 512-byte rows
+    stored = table64.view(-1, 256)
+    R = stored.shape[0]
 
     def ids_for(seed):
         b = synthetic_batch(schema, S["batch"], seed=seed)
@@ -184,57 +275,123 @@ def main(argv=None) -> int:
                                        b.items()})[64].reshape(-1)
         return (ids % rows64).to(torch.int32).to(dev)
 
-    k1_err = None
-    if "kernel1" in phases or "times" in phases:
+    def update_inputs(seed):
+        """One batch's table-update inputs at the main-path shapes: the
+        stored rows its ids touch, f32 row gradients, the sorted duplicate
+        sums (uid, summed, n_valid) and a bool [R] of the touched rows."""
+        sid = ids_for(seed) // 4
+        g = torch.randn((sid.numel(), 256), generator=gen, device=dev) * 0.01
+        s_, order = torch.sort(sid, stable=True)
+        summed, uid, _, n_valid = k_rows.segment_row_grads(s_, g[order],
+                                                           num_rows=R)
+        touched = torch.zeros(R, dtype=torch.bool, device=dev)
+        touched[sid.long()] = True
+        return dict(uid=uid, summed=summed, n_valid=n_valid, touched=touched,
+                    n_ids=sid.numel())
+
+    errs = {}
+    if "gather_rows" in phases or "times" in phases:
         ids0 = ids_for(10_000)
-        got = k1.gather_rows(table64, ids0)
-        ref = k1.gather_rows_plain(table64, ids0)
+        got = k_rows.gather_rows(table64, ids0)
+        ref = k_rows.gather_rows_plain(table64, ids0)
         sync()
         same = bool(torch.equal(got.view(torch.int16), ref.view(torch.int16)))
-        require(same, "kernel1: gather_rows differs from its plain version")
-        k1_err = float((got.float() - ref.float()).abs().max())
-        log("kernel1", table_mb=table64.numel() * 2 / 1e6, ids=ids0.numel(),
-            bitwise_equal=same, max_abs_err=k1_err)
+        require(same, "gather_rows differs from its plain version")
+        errs["gather_rows"] = float((got.float() - ref.float()).abs().max())
+        log("gather_rows", table_mb=table64.numel() * 2 / 1e6, ids=ids0.numel(),
+            bitwise_equal=same, max_abs_err=errs["gather_rows"])
 
-    # ------------------------------------------------------------- 2/3 k2
     q = torch.nn.functional.normalize(
         torch.randn((S["q"], S["d"]), generator=gen, device=dev), dim=1)
     corpus = torch.nn.functional.normalize(
         torch.randn((S["n_pad"], S["d"]), generator=gen, device=dev), dim=1)
     num_items = S["n_pad"] - 1000          # a masked, partial tail group
     G = 16
-    k2_err = None
-    if "kernel2" in phases or "times" in phases:
+    if "grouped_score_max" in phases or "times" in phases:
         scale = torch.rand((S["n_pad"], 1), generator=gen, device=dev) + 0.5
         variants = {
             "f32_ip": (corpus, None),
             "bf16_ip": (corpus.to(torch.bfloat16), None),
             "f32_l2": (corpus * scale, ((corpus * scale) ** 2).sum(1)),
         }
-        errs = {}
+        by_variant = {}
         for name, (v, sqn) in variants.items():
-            got = k2.grouped_score_max(q, v, sqn, group=G, num_items=num_items)
-            ref = k2.grouped_score_max_plain(q, v, sqn, group=G,
-                                             num_items=num_items)
+            got = k_scan.grouped_score_max(q, v, sqn, group=G, num_items=num_items)
+            ref = k_scan.grouped_score_max_plain(q, v, sqn, group=G,
+                                                 num_items=num_items)
             sync()
             require(tuple(got.shape) == (S["q"], S["n_pad"] // G),
-                    f"kernel2 {name}: shape {tuple(got.shape)}")
-            errs[name] = float((got - ref).abs().max())
-            require(errs[name] <= 1e-4, f"kernel2 {name}: max abs diff "
-                    f"{errs[name]} > 1e-4")
+                    f"grouped_score_max {name}: shape {tuple(got.shape)}")
+            by_variant[name] = float((got - ref).abs().max())
+            require(by_variant[name] <= 1e-4, f"grouped_score_max {name}: max "
+                    f"abs diff {by_variant[name]} > 1e-4")
             del got, ref
         del variants, scale
-        k2_err = max(errs.values())
-        log("kernel2", q=S["q"], n_pad=S["n_pad"], d=S["d"], group=G,
-            num_items=num_items, max_abs_err=errs, tolerance=1e-4)
+        errs["grouped_score_max"] = max(by_variant.values())
+        log("grouped_score_max", q=S["q"], n_pad=S["n_pad"], d=S["d"], group=G,
+            num_items=num_items, max_abs_err=by_variant, tolerance=1e-4)
 
-    # ----------------------------------------------------------- 4. slice
-    launches = {"gather_rows": 0, "grouped_score_max": 0}
-    if "slice" in phases:
+    upd = None
+    if any(p in phases for p in KERNEL_PHASES[2:]) or "times" in phases:
+        upd = update_inputs(10_001)
+        acc0 = torch.rand((R, 1), generator=gen, device=dev) + 0.1
+        u, sm, nv, touched = (upd["uid"], upd["summed"], upd["n_valid"],
+                              upd["touched"])
+        gd = torch.zeros_like(stored)
+        gd_ref = torch.zeros_like(stored)
+        k_rows.scatter_add_rows(u, sm, gd, nv)
+        k_rows.scatter_add_rows_plain(u, sm, gd_ref, nv)
+        sync()
+        same = bool(torch.equal(gd.view(torch.int16), gd_ref.view(torch.int16)))
+        require(same, "scatter_add_rows differs from its plain version")
+        errs["scatter_add_rows"] = float((gd.float() - gd_ref.float()).abs().max())
+        log("scatter_add_rows", table=list(stored.shape), ids=upd["n_ids"],
+            unique_rows=int(nv), bitwise_equal=same,
+            max_abs_err=errs["scatter_add_rows"])
+        del gd_ref
+
+        p_k, a_k = stored.clone(), acc0.clone()
+        p_r, a_r = stored.clone(), acc0.clone()
+        k_dense.rowwise_adagrad_update(p_k, a_k, gd, lr=LR)
+        k_dense.rowwise_adagrad_update_plain(p_r, a_r, gd, lr=LR)
+        sync()
+        err = check_table_update(torch, "rowwise_adagrad_update", p_k, a_k,
+                                 p_r, a_r, stored, acc0, touched)
+        errs["rowwise_adagrad_update"] = err["p_max_abs_err"]
+        log("rowwise_adagrad_update", **err)
+
+        p_k.copy_(stored), a_k.copy_(acc0)
+        p_r.copy_(stored), a_r.copy_(acc0)
+        k_sparse.sparse_adagrad_apply(p_k, a_k, u, sm, nv, lr=LR)
+        k_sparse.sparse_adagrad_apply_plain(p_r, a_r, u, sm, nv, lr=LR)
+        sync()
+        err = check_table_update(torch, "sparse_adagrad_apply", p_k, a_k,
+                                 p_r, a_r, stored, acc0, touched)
+        errs["sparse_adagrad_apply"] = err["p_max_abs_err"]
+        log("sparse_adagrad_apply", **err)
+        del p_k, a_k, p_r, a_r
+
+    # ----------------------------------------------------------- 7. slice
+    counters = {"gather_rows": k_rows.gather_rows,
+                "grouped_score_max": k_scan.grouped_score_max,
+                "scatter_add_rows": k_rows.scatter_add_rows,
+                "rowwise_adagrad_update": k_dense.rowwise_adagrad_update,
+                "sparse_adagrad_apply": k_sparse.sparse_adagrad_apply}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    launches = {"slice": {}, "train": {}}
+    model = None
+    if "slice" in phases or "train" in phases:
         model, _ = build_network(bench_conf.networks["class"],
                                  {"conf": bench_conf, "device": dev, "seed": 0})
-        k1.gather_rows.launches = 0
-        k2.grouped_score_max.launches = 0
+    if "slice" in phases:
+        reset_counts()
         sync()
         t0 = time.perf_counter()
         out = predict(model, (synthetic_batch(model.schema, S["batch"], seed=i)
@@ -261,10 +418,11 @@ def main(argv=None) -> int:
         metrics = batch_compute_recall_score(searcher, qv, lab, [10, 100])
         sync()
         first_search_s = time.perf_counter() - t0
-        launches = {"gather_rows": k1.gather_rows.launches,
-                    "grouped_score_max": k2.grouped_score_max.launches}
-        require(all(v > 0 for v in launches.values()) or rehearse,
-                f"a kernel was not launched on the main path: {launches}")
+        launches["slice"] = read_counts()
+        require(all(launches["slice"][k] > 0 for k in
+                    ("gather_rows", "grouped_score_max")) or rehearse,
+                f"a kernel was not launched on the serving path: "
+                f"{launches['slice']}")
         require(all(math.isfinite(v) for v in metrics.values()),
                 f"non-finite metrics {metrics}")
         # the top-100 against a plain exact search
@@ -299,16 +457,122 @@ def main(argv=None) -> int:
             search_ms_per_4096=sorted(searcher_times)[1] * 1e3
             * 4096 / len(qv), metrics=metrics, top100_score_err=score_err,
             top100_tie_err=tie_err, top100_index_match=idx_match,
-            launches=launches, peak_mem_gb=(torch.cuda.max_memory_allocated()
-                                            / 1e9 if not rehearse else None))
-        del out, model, searcher, cn, qn
+            launches=launches["slice"],
+            peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if not rehearse else None))
+        del out, searcher, cn, qn
         if not rehearse:
             torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------- 5. cli
+    # ----------------------------------------------------------- 8. train
+    if "train" in phases:
+        from recommendflow_tpu_torch.retrieval.eval import make_recall_evaluator
+        from recommendflow_tpu_torch.train.callbacks import EvalCallback
+        from recommendflow_tpu_torch.train.trainer import Trainer, table_params
+        if rehearse:   # the bench table does not train at CPU speed
+            demo = Configuration(DEMO_CONF)
+            model, _ = build_network(demo.networks["class"],
+                                     {"conf": demo, "device": dev, "seed": 0})
+        T = dict(warm=3, dense=20, sparse_set=20, table_dense=5,
+                 eval_batches=512) if not rehearse else \
+            dict(warm=1, dense=2, sparse_set=2, table_dense=2, eval_batches=4)
+        seeds = iter(range(100_000, 200_000))
+
+        def batches(n):
+            return [synthetic_batch(model.schema, S["batch"], seed=next(seeds))
+                    for _ in range(n)]
+
+        runs = [("warm", "split", "dense"), ("dense", "split", "dense"),
+                ("sparse_set", "split", "sparse_set"),
+                ("table_dense", "dense", "dense")]
+        data = {name: batches(T[name]) for name, _, _ in runs}
+        eval_ds = batches(T["eval_batches"])
+        if not rehearse:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, per_run, losses = None, {}, []
+        for name, mode, strategy in runs:
+            trainer = Trainer(model, table_update=mode, split_strategy=strategy,
+                              device=dev, seed=0)
+            cbs = [EvalCallback(make_recall_evaluator(eval_ds, topk_list=[10, 100]))
+                   ] if name == "table_dense" else []
+            res = trainer.fit(data[name], state=state, callbacks=cbs,
+                              resume_data=False, verbose=False)
+            state, logs = res["state"], res["history"][-1]
+            losses.append(logs["loss"])
+            per_run[name] = {
+                "steps": T[name], "loss": logs["loss"],
+                "examples_per_s": logs["examples_per_sec"],
+                "ms_per_step": S["batch"] / logs["examples_per_sec"] * 1e3}
+        sync()
+        launches["train"] = read_counts()
+        recall = {k: v for k, v in logs.items() if k.startswith("val_")}
+        require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        require(all(v > 0 for v in launches["train"].values()) or rehearse,
+                f"a kernel was not launched on the training path: "
+                f"{launches['train']}")
+        require(bool(recall) and all(math.isfinite(v) for v in recall.values()),
+                f"recall evaluation {recall}")
+        # one more step per split strategy, its table update redone through
+        # the plain versions on the same row gradients. Both run under
+        # torch's deterministic algorithms: the duplicate sums' index_add_
+        # then adds in one order on both sides instead of by float atomics.
+        update_check = {}
+        tables = table_params(model)
+        for strategy in ("dense", "sparse_set"):
+            trainer = Trainer(model, table_update="split",
+                              split_strategy=strategy, device=dev, seed=0)
+            batch = batches(1)[0]
+            trainer.plan(batch)
+            _, _, phys, rows = trainer._forward_backward(trainer._put(batch))
+            before = {d: (tables[d].detach().clone(),
+                          state.table_acc[f"dim{d}"].clone()) for d in phys}
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                trainer._apply_table_updates(state, phys, rows)
+                for d in phys:
+                    p, acc = tables[d].detach(), state.table_acc[f"dim{d}"]
+                    p_k, acc_k = p.clone(), acc.clone()
+                    p0, acc0 = before[d]
+                    p.copy_(p0), acc.copy_(acc0)
+                    s_, order = torch.sort(phys[d], stable=True)
+                    summed, uid, _, n_valid = k_rows.segment_row_grads(
+                        s_, rows[d].grad[order].float(), num_rows=p.shape[0])
+                    if strategy == "dense":
+                        gd = torch.zeros_like(p)
+                        k_rows.scatter_add_rows_plain(uid, summed, gd, n_valid)
+                        k_dense.rowwise_adagrad_update_plain(
+                            p, acc, gd, lr=trainer.table_lr)
+                    else:
+                        k_sparse.sparse_adagrad_apply_plain(
+                            p, acc, uid, summed, n_valid, lr=trainer.table_lr)
+                    sync()
+                    touched = torch.zeros(p.shape[0], dtype=torch.bool,
+                                          device=dev)
+                    touched[phys[d].long()] = True
+                    update_check[f"{strategy}/dim{d}"] = check_table_update(
+                        torch, f"train step ({strategy}, dim{d})", p_k, acc_k,
+                        p, acc, p0, acc0, touched)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        log("train", config=os.path.basename(BENCH_CONF) if not rehearse
+            else os.path.basename(DEMO_CONF), batch=S["batch"],
+            dropout=float(model.user_tower.drop.p) if model.user_tower.drop
+            else 0.0, runs=per_run, recall=recall, launches=launches["train"],
+            update_check=update_check,
+            peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if not rehearse else None))
+        del state, trainer, data, eval_ds
+    del model
+    if not rehearse:
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- 9. cli
     if "cli" in phases:
         from recommendflow_tpu_torch.cli import evaluate as eval_cli
         from recommendflow_tpu_torch.cli import predict as pred_cli
+        from recommendflow_tpu_torch.cli import train as train_cli
+        from recommendflow_tpu_torch.train.checkpoint import read_checkpoint
         demo = Configuration(DEMO_CONF)
         with tempfile.TemporaryDirectory() as tmp:
             generate_records(demo, os.path.join(tmp, "rec"),
@@ -336,49 +600,113 @@ def main(argv=None) -> int:
             diff = max(float(np.abs(outs[k] - direct[k]).max())
                        for k in ("user", "ad"))
             require(diff <= 1e-5, f"predict CLI vs direct model: {diff}")
-        log("cli", rows=n, evaluate_metrics=metrics, predict_vs_model=diff)
+            # train, then predict from the checkpoint it saved
+            res = train_cli.main([DEMO_CONF, "--data", data, "--train_mode",
+                                  "test", "--device", str(dev),
+                                  "--batch_size", str(min(256, n // 8)),
+                                  "--model_save_root", os.path.join(tmp, "m")])
+            final = os.path.join(tmp, "m", "ckpt", "final.pt")
+            hist = res["history"][-1]
+            require(math.isfinite(hist["loss"]), f"train CLI logs {hist}")
+            outs2 = pred_cli.main([DEMO_CONF, "--data", data, "--checkpoint",
+                                   final, "--out", os.path.join(tmp, "p2.npz"),
+                                   "--device", str(dev)])
+            model.load_state_dict(read_checkpoint(final)["model"])
+            direct2 = predict(model, ds, dev)
+            diff2 = max(float(np.abs(outs2[k] - direct2[k]).max())
+                        for k in ("user", "ad"))
+            require(diff2 <= 1e-5, f"predict CLI on the trained checkpoint vs "
+                    f"the model: {diff2}")
+            del model
+        log("cli", rows=n, evaluate_metrics=metrics, predict_vs_model=diff,
+            train_cli={k: v for k, v in hist.items()
+                       if k in ("loss", "examples_per_sec", "val_hit@5")},
+            trained_predict_vs_model=diff2)
 
-    # ----------------------------------------------------------- 6. times
+    # ---------------------------------------------------------- 10. times
     kernels = []
     if "times" in phases and not rehearse:
         timer = Timer(torch, S["reps"])
+        row = {}
+
+        def add(name, ms, plain_ms, library_ms, bytes_, ops=0.0, peak=None):
+            t_bytes, t_ops = bytes_ / bw, ops / (peak or flops)
+            kernels.append(dict(
+                name=name, **KERNEL_META[name],
+                launches=launches[KERNEL_PATH[name]].get(name, 0),
+                launches_by_path={p: c.get(name, 0) for p, c in launches.items()},
+                max_abs_err=errs.get(name), ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                library_ms=library_ms))
+            row[name] = {"bytes": bytes_, "ops": ops}
+
         ids_reps = [ids_for(20_000 + i) for i in range(S["reps"])]
         n_ids = ids_reps[0].numel()
         uniq = torch.unique(ids_reps[0]).numel()
-        k1_bytes = uniq * 128 + n_ids * 128 + n_ids * 4
-        k1_ms = timer.median_ms(lambda i: k1.launch_gather_rows(
-            table64, ids_reps[i], check_ids=False))
-        k1_plain = timer.median_ms(lambda i: k1.gather_rows_plain(
-            table64, ids_reps[i]))
-        k1_lib = timer.median_ms(lambda i: torch.index_select(
-            table64, 0, ids_reps[i]))
-        kernels.append(dict(
-            name="gather_rows", **KERNEL_META["gather_rows"],
-            launches=launches["gather_rows"], max_abs_err=k1_err, ms=k1_ms,
-            plain_ms=k1_plain, bound_ms=k1_bytes / bw * 1e3,
-            bound_by="bytes", library_ms=k1_lib))
+        add("gather_rows",
+            timer.median_ms(lambda i: k_rows.launch_gather_rows(
+                table64, ids_reps[i], check_ids=False)),
+            timer.median_ms(lambda i: k_rows.gather_rows_plain(
+                table64, ids_reps[i])),
+            timer.median_ms(lambda i: torch.index_select(table64, 0,
+                                                         ids_reps[i])),
+            uniq * 128 + n_ids * 128 + n_ids * 4)
         del ids_reps
 
         nq, n_pad, d = S["q"], S["n_pad"], S["d"]
-        k2_ops = 2.0 * nq * num_items * d
-        k2_bytes = 4 * (nq * d + n_pad * d + nq * (n_pad // G))
-        k2_ms = timer.median_ms(lambda i: k2.launch_grouped_score_max(
-            q, corpus, None, group=G, num_items=num_items))
-        k2_plain = timer.median_ms(lambda i: k2.grouped_score_max_plain(
-            q, corpus, None, group=G, num_items=num_items))
-        k2_lib = timer.median_ms(lambda i: torch.matmul(q, corpus.T).view(
-            nq, n_pad // G, G).amax(dim=-1))
-        kernels.append(dict(
-            name="grouped_score_max", **KERNEL_META["grouped_score_max"],
-            launches=launches["grouped_score_max"], max_abs_err=k2_err,
-            ms=k2_ms, plain_ms=k2_plain,
-            bound_ms=max(k2_ops / flops, k2_bytes / bw) * 1e3,
-            bound_by="operations" if k2_ops / flops >= k2_bytes / bw
-            else "bytes", library_ms=k2_lib))
+        add("grouped_score_max",
+            timer.median_ms(lambda i: k_scan.launch_grouped_score_max(
+                q, corpus, None, group=G, num_items=num_items)),
+            timer.median_ms(lambda i: k_scan.grouped_score_max_plain(
+                q, corpus, None, group=G, num_items=num_items)),
+            timer.median_ms(lambda i: torch.matmul(q, corpus.T).view(
+                nq, n_pad // G, G).amax(dim=-1)),
+            4 * (nq * d + n_pad * d + nq * (n_pad // G)),
+            ops=2.0 * nq * num_items * d)
+
+        # the table kernels on one batch's update (phases 4-6); each timed
+        # call updates its table in place, as the trainer's does
+        u, sm, nv = upd["uid"], upd["summed"], upd["n_valid"]
+        n_u = int(nv)
+        n_t = int(upd["touched"].sum())
+        W = stored.shape[1]
+        uv, smv = u[:n_u].long(), sm[:n_u]
+        add("scatter_add_rows",
+            timer.median_ms(lambda i: k_rows.scatter_add_rows(u, sm, gd, nv)),
+            timer.median_ms(lambda i: k_rows.scatter_add_rows_plain(
+                u, sm, gd, nv)),
+            timer.median_ms(lambda i: gd.index_add_(0, uv, smv.to(gd.dtype))),
+            n_u * (4 + W * 4 + 2 * W * 2) + 4)
+        p_t, a_t = stored.clone(), acc0.clone()
+        add("rowwise_adagrad_update",
+            timer.median_ms(lambda i: k_dense.rowwise_adagrad_update(
+                p_t, a_t, gd, lr=LR)),
+            timer.median_ms(lambda i: k_dense.rowwise_adagrad_update_plain(
+                p_t, a_t, gd, lr=LR)),
+            None,
+            # g and acc read whole; p read and written, acc written, only
+            # where the gradient is not zero (this batch's touched rows)
+            R * W * 2 + R * 4 + n_t * (2 * W * 2 + 4))
+        add("sparse_adagrad_apply",
+            timer.median_ms(lambda i: k_sparse.sparse_adagrad_apply(
+                p_t, a_t, u, sm, nv, lr=LR)),
+            timer.median_ms(lambda i: k_sparse.sparse_adagrad_apply_plain(
+                p_t, a_t, u, sm, nv, lr=LR)),
+            None,
+            n_u * (4 + W * 4 + 2 * W * 2 + 2 * 4) + 4)
+        zero_ms = timer.median_ms(lambda i: gd.zero_())
         log("times", card=card, peaks={"bytes_per_s": bw, "fp32_flops": flops},
-            k1={"ids": n_ids, "unique_rows": uniq, "bytes": k1_bytes},
-            k2={"q": nq, "n_pad": n_pad, "d": d, "flops": k2_ops,
-                "bytes": k2_bytes}, reps=S["reps"])
+            shapes={"gather_rows": {"ids": n_ids, "unique_rows": uniq},
+                    "grouped_score_max": {"q": nq, "n_pad": n_pad, "d": d},
+                    "table": [R, W], "update_ids": upd["n_ids"],
+                    "unique_stored_rows": n_u, "touched_stored_rows": n_t},
+            work=row, zero_fill_ms=zero_ms,
+            zero_fill_bound_ms=R * W * 2 / bw * 1e3,
+            full_table_pass_bound_ms=(3 * R * W * 2 + 2 * R * 4) / bw * 1e3,
+            library_ms_note={"rowwise_adagrad_update": "no single PyTorch call",
+                             "sparse_adagrad_apply": "no single PyTorch call"},
+            reps=S["reps"])
 
     if rehearse:
         print("chip_smoke: CPU rehearsal done (no result without a card)")

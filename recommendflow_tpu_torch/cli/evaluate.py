@@ -6,7 +6,7 @@ in a FlatSearcher and prints hit / mrr / ndcg @ K (AUC/AUPR for a scoring
 model):
 
     python -m recommendflow_tpu_torch.cli.evaluate conf/demo_recall.yaml \
-        --data 'records/*.rfb' [--checkpoint vars.npz] [--topk 5,10,50]
+        --data 'records/*.rfb' [--checkpoint ckpt/final.pt] [--topk 5,10,50]
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ def main(argv=None):
     p.add_argument("conf")
     p.add_argument("--data", required=True)
     p.add_argument("--checkpoint", default=None,
-                   help=".npz of a flattened flax variable tree")
+                   help="a port checkpoint (.pt or its directory) or an .npz "
+                        "of a flattened flax variable tree")
     p.add_argument("--exp_id", type=int, default=None,
                    help="activate experiment row (must match the "
                         "checkpoint's training run)")

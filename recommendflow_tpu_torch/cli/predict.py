@@ -7,8 +7,10 @@ Restores weights, runs the model over record files and dumps the outputs
     python -m recommendflow_tpu_torch.cli.predict conf/demo_recall.yaml \
         --data 'records/*.rfb' --out preds.npz [--checkpoint vars.npz]
 
---checkpoint is an .npz of a flattened flax variable tree ('/'-joined keys,
-see interop.py) until the port has checkpoints of its own.
+--checkpoint is one of the port's training checkpoints (a `.pt` file that
+cli/train wrote, or its directory: the newest step; train/checkpoint.py), or
+an .npz of a flattened flax variable tree ('/'-joined keys, interop.py) for
+weights carried from the JAX package.
 """
 from __future__ import annotations
 
@@ -24,11 +26,16 @@ def build_model(conf, args, dev):
     """Model from the config, with --checkpoint weights when given."""
     from recommendflow_tpu_torch.interop import load_jax_variables
     from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.train.checkpoint import read_checkpoint
+    npz = args.checkpoint if args.checkpoint and \
+        args.checkpoint.endswith(".npz") else None
     model, restored = build_network(
         conf.networks["class"], {"conf": conf, "device": dev, "seed": args.seed},
-        checkpoint_path=args.checkpoint)
+        checkpoint_path=npz)
     if restored is not None:
         load_jax_variables(model, restored)
+    elif args.checkpoint:
+        model.load_state_dict(read_checkpoint(args.checkpoint)["model"])
     return model
 
 
@@ -37,7 +44,8 @@ def main(argv=None):
     p.add_argument("conf", help="yaml config path")
     p.add_argument("--data", required=True, help="record pattern")
     p.add_argument("--checkpoint", default=None,
-                   help=".npz of a flattened flax variable tree")
+                   help="a port checkpoint (.pt or its directory) or an .npz "
+                        "of a flattened flax variable tree")
     p.add_argument("--out", required=True, help="output .npz path")
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--dayno", default=None)

@@ -13,9 +13,24 @@ bf16 leaves arrive as `ml_dtypes.bfloat16` arrays, or as 2-byte void arrays
 when read back from an .npz without ml_dtypes installed; both move through a
 uint16 view, never through float32, so the bits are kept.
 
-The checkpoint file of the port's CLIs is an .npz of the flattened tree with
-'/'-joined keys: what `np.savez(path, **flax.traverse_util.flatten_dict(
-variables, sep="/"))` writes from the JAX side.
+The weights file the port's CLIs read besides their own checkpoints
+(train/checkpoint.py) is an .npz of the flattened tree with '/'-joined keys:
+what `np.savez(path, **flax.traverse_util.flatten_dict(variables, sep="/"))`
+writes from the JAX side.
+
+A training state crosses as a plain tree of numpy arrays (what the JAX side
+reads off its TrainState: `params`, `batch_stats`, the split path's
+`table_acc`, or the optax row-wise Adagrad accumulators of the dense path,
+and the dense leaves' Adam moments):
+
+  {"params": ..., "batch_stats": ...,
+   "table_acc": {"dim{d}": [R/P, 1] f32},
+   "opt": {"mu": params tree of the dense leaves, "nu": likewise,
+           "count": int},
+   "step": int}
+
+`load_train_state` copies it into a port TrainState (train/trainer.py),
+`train_state_tree` reads one back out.
 """
 from __future__ import annotations
 
@@ -90,7 +105,7 @@ def _torch_key(path: Tuple[str, ...]) -> str:
 
 def variables_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax variable tree {'params': ..., 'batch_stats': ...} as numpy ->
-    state dict of CPU tensors (no num_batches_tracked: see load_jax_variables)."""
+    state dict of CPU tensors."""
     state: Dict[str, torch.Tensor] = {}
     for path, leaf in flatten(variables).items():
         t = to_tensor(leaf)
@@ -110,8 +125,6 @@ def jax_from_variables(state: Mapping[str, torch.Tensor],
     inv_bn.update({v: ("batch_stats", k) for k, v in _BN_STATS.items()})
     for key, t in state.items():
         *mods, leaf = key.split(".")
-        if leaf == "num_batches_tracked":
-            continue
         owner = mods[-1] if mods else ""
         arr = to_numpy(t, bf16_dtype)
         if owner.startswith("Dense"):
@@ -130,12 +143,10 @@ def jax_from_variables(state: Mapping[str, torch.Tensor],
 def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]
                        ) -> torch.nn.Module:
     """Copy a flax variable tree into `model` in place (onto its device).
-    Every parameter and buffer must be covered, except BatchNorm's
-    num_batches_tracked counter, which flax does not keep."""
+    Every parameter and buffer must be covered."""
     state = variables_from_jax(variables)
     own = model.state_dict()
-    missing = [k for k in own if k not in state
-               and not k.endswith("num_batches_tracked")]
+    missing = [k for k in own if k not in state]
     unexpected = [k for k in state if k not in own]
     if missing or unexpected:
         raise KeyError(f"variable tree does not match the model: missing "
@@ -165,3 +176,56 @@ def load_variables_npz(path: str) -> Tree:
     """Read an .npz of a flattened flax variable tree back into a tree."""
     with np.load(path, allow_pickle=False) as data:
         return unflatten({tuple(k.split("/")): data[k] for k in data.files})
+
+
+def _dense_params(state) -> Dict[str, torch.nn.Parameter]:
+    """name -> parameter for every parameter the optimizer updates."""
+    mine = {id(p) for g in state.optimizer.param_groups for p in g["params"]}
+    return {n: p for n, p in state.model.named_parameters() if id(p) in mine}
+
+
+def load_train_state(state, tree: Mapping[str, Any]):
+    """Copy a training-state tree (module docstring) into a port TrainState,
+    in place, onto its devices. Returns state."""
+    load_jax_variables(state.model, {k: tree[k] for k in ("params", "batch_stats")
+                                     if k in tree})
+    accs = tree.get("table_acc") or {}
+    if sorted(accs) != sorted(state.table_acc):
+        raise KeyError(f"table_acc {sorted(accs)} does not match the state's "
+                       f"{sorted(state.table_acc)}")
+    with torch.no_grad():
+        for k, v in accs.items():
+            state.table_acc[k].copy_(to_tensor(v))
+    opt = tree["opt"]
+    mu = variables_from_jax({"params": opt["mu"]})
+    nu = variables_from_jax({"params": opt["nu"]})
+    dense = _dense_params(state)
+    if sorted(mu) != sorted(dense) or sorted(nu) != sorted(dense):
+        raise KeyError(f"Adam moments {sorted(mu)} do not match the dense "
+                       f"parameters {sorted(dense)}")
+    for name, p in dense.items():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(opt["count"])),
+            "exp_avg": mu[name].to(p.device).clone(),
+            "exp_avg_sq": nu[name].to(p.device).clone()}
+    state.step = int(tree["step"])
+    return state
+
+
+def train_state_tree(state, bf16_dtype=None) -> Tree:
+    """A port TrainState as a training-state tree of numpy arrays (module
+    docstring); `bf16_dtype` as in to_numpy."""
+    tree = jax_from_variables(state.model.state_dict(), bf16_dtype)
+    tree["table_acc"] = {k: to_numpy(v) for k, v in state.table_acc.items()}
+    dense = _dense_params(state)
+    moments, count = {"exp_avg": {}, "exp_avg_sq": {}}, 0
+    for name, p in dense.items():
+        st = state.optimizer.state.get(p, {})
+        count = int(st["step"]) if "step" in st else 0
+        for key in moments:
+            moments[key][name] = st.get(key, torch.zeros_like(p))
+    tree["opt"] = {"mu": jax_from_variables(moments["exp_avg"])["params"],
+                   "nu": jax_from_variables(moments["exp_avg_sq"])["params"],
+                   "count": count}
+    tree["step"] = int(state.step)
+    return tree

@@ -1,9 +1,10 @@
 """Model base: the contract every zoo model follows (the counterpart of
 `recommendflow_tpu/models/base.py`).
 
-Models are `nn.Module`s built from a Configuration. In eval mode
-`forward(batch)` returns a dict of outputs (embeddings / scores / labels);
-the training forward arrives with the trainer.
+Models are `nn.Module`s built from a Configuration. In training mode
+(`model.train()`) `forward(batch)` returns `(loss, aux)`, a scalar loss and a
+dict of metric tensors; in eval mode a dict of outputs (embeddings / scores /
+labels).
 
 Models load reflectively by dotted path through `build_network`, named in
 YAML `Networks.class`. Configs name the JAX package's classes
@@ -15,7 +16,7 @@ from __future__ import annotations
 import importlib
 import math
 import pkgutil
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -24,6 +25,7 @@ from recommendflow_tpu_torch.config.configuration import Configuration
 from recommendflow_tpu_torch.data.schema import BatchSchema, compile_schema
 from recommendflow_tpu_torch.ops.embedding import (concat_tower, embed_batch,
                                                    init_group_table)
+from recommendflow_tpu_torch.utils.str_parser import str2fn
 
 Batch = Dict[str, torch.Tensor]
 
@@ -85,8 +87,16 @@ def init_dense_(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class RecModel(nn.Module):
-    """Base class: wires Configuration -> schema. `loss` (a callable or a
-    dotted name, default Networks.loss) is kept for the training forward."""
+    """Base class: wires Configuration -> schema and resolves the loss (a
+    callable or a dotted name, default Networks.loss)."""
+
+    # True on models whose forward reads embedding tables through exactly
+    # ONE full-batch embed_batch pass: the trainer's split table-update path
+    # then gathers the rows outside autograd and hands them in
+    # (ops/embedding.py:rows_key). A model with any other table read must
+    # keep this False, or that read's gradient is dropped (the trainer
+    # checks: train/trainer.py:Trainer._validate_row_injection).
+    row_injection = False
 
     def __init__(self, conf: Configuration, loss: Any = None):
         super().__init__()
@@ -99,7 +109,18 @@ class RecModel(nn.Module):
         if self.network_conf("logq_feature"):
             raise NotImplementedError(
                 "Networks.logq_feature (sampled-softmax logQ correction) "
-                "arrives with the training slice")
+                "is not ported yet (ROADMAP Queue 1, train/freq.py)")
+
+    def resolve_loss(self) -> Callable:
+        """The loss callable (resolved once: the training forward calls this
+        every step)."""
+        if getattr(self, "_loss_fn", None) is None:
+            loss = self.loss if self.loss is not None \
+                else self.conf.networks.get("loss")
+            if loss is None:
+                raise ValueError("no loss given (model arg or Networks.loss)")
+            self._loss_fn = str2fn(loss) if isinstance(loss, str) else loss
+        return self._loss_fn
 
     def network_conf(self, key: str, default=None):
         return self.conf.networks.get(key, default)

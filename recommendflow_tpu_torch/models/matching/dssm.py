@@ -1,10 +1,12 @@
-"""DSSM / two-tower recall model, inference (the counterpart of
+"""DSSM / two-tower recall model (the counterpart of
 `recommendflow_tpu/models/matching/dssm.py`).
 
 Per-tower feature embedding -> MLP tower (selu + BatchNorm by default) -> L2
-normalize; in eval mode the forward returns {'user', 'ad', 'label', ...},
-which feeds the retrieval evaluator directly. Both towers' features come from
-one fused gather per dim group (FeatureEmbedder.tower_vectors).
+normalize. In training mode the forward returns (in-batch loss,
+{'pos_cos'}); in eval mode {'user', 'ad', 'label', ...}, which feeds the
+retrieval evaluator directly. Both towers' features come from one fused
+gather per dim group (FeatureEmbedder.tower_vectors), so the split-update
+trainer can inject the gathered rows (row_injection).
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ class Dssm(RecModel):
 
     Built on `device` (default "cuda"; raises without a card unless "cpu" is
     asked for) with weights drawn from a torch.Generator seeded by `seed`.
-    The module starts in eval mode: only the inference forward exists yet."""
+    The module starts in eval mode; the trainer switches it to training."""
+
+    row_injection = True  # single full-batch embed pass (models/base.py)
 
     def __init__(self, conf: Configuration, loss=None,
                  tower_units: Optional[Sequence[int]] = None,
@@ -58,11 +62,8 @@ class Dssm(RecModel):
             units.append(out_dim)
         return units
 
-    def forward(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "the training forward (in-batch loss) arrives with the "
-                "training slice; call model.eval() for inference")
+    def forward(self, batch: Batch):
+        """(loss, {'pos_cos'}) in training mode; the output dict in eval."""
         schema = self.schema
         user_in, ad_in = self.embedder.tower_vectors(batch, ("user", "ad"))
         u = l2_normalize(self.user_tower(user_in))
@@ -71,6 +72,11 @@ class Dssm(RecModel):
         y_true = batch.get(label_name)
         if y_true is None:
             y_true = torch.ones(u.shape[0], dtype=u.dtype, device=u.device)
+        if self.training:
+            loss = self.resolve_loss()(y_true, u, a)
+            pos_cos = torch.sum(torch.sum(u * a, dim=1) * y_true) \
+                / torch.clamp(torch.sum(y_true), min=1.0)
+            return loss, {"pos_cos": pos_cos}
         out: Dict[str, torch.Tensor] = {"user": u, "ad": a, "label": y_true}
         # pass through any extra label-tower ids
         for name in schema.label_names[1:]:

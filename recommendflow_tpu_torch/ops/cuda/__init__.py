@@ -5,4 +5,5 @@ counter; `_build.py` compiles `csrc/*.cu` with nvcc on first use. Nothing is
 built or loaded when a module is imported.
 """
 
-KERNELS = ("embedding_bag", "grouped_topk")   # csrc/<name>.cu
+# csrc/<name>.cu, one shared library each
+KERNELS = ("embedding_bag", "grouped_topk", "table_update", "sparse_apply")

@@ -2,8 +2,8 @@
 
 Each source is compiled on first use by `nvcc` for Hopper (`sm_90a`) into a
 shared library with a plain C interface under `recommendflow_tpu_torch/build/`
-(git-ignored). The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale one is never loaded. A
+(git-ignored). The library's file name carries a hash of its source, the
+shared headers and the flags, so an edited source is rebuilt and a stale one is never loaded. A
 source includes no PyTorch header, so a build takes seconds.
 
 Nothing here is imported or run on a machine without a card: the wrappers in
@@ -50,9 +50,13 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
+    """Build output of `name`, keyed by a hash of its source, every shared
+    header of csrc/ (`*.cuh`) and the flags."""
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 

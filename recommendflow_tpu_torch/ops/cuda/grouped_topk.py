@@ -1,6 +1,6 @@
-"""Kernel 2: the fused score + group-max scan of exact top-k retrieval,
-`m1[q, g] = max over the G items of group g of (q·v or 2q·v − ‖v‖²)`, items
-at or past `num_items` scoring NEG.
+"""`grouped_score_max`: the fused score + group-max scan of exact top-k
+retrieval, `m1[q, g] = max over the G items of group g of (q·v or
+2q·v − ‖v‖²)`, items at or past `num_items` scoring NEG.
 
 Replaces `recommendflow_tpu/ops/pallas/grouped_topk.py:grouped_score_max`,
 with the output untransposed (`[Q, N_pad/G]`). The CUDA source, its bound and

@@ -1,5 +1,5 @@
-"""The embedding engine: packed stacked tables + fused lookup/pooling,
-forward only (the counterpart of `recommendflow_tpu/ops/embedding.py`).
+"""The embedding engine: packed stacked tables + fused lookup/pooling (the
+counterpart of `recommendflow_tpu/ops/embedding.py`).
 
   * All tables of equal dim are stacked row-wise into ONE logical
     [total_rows, dim] array per dim group (schema.TableGroup): one gather per
@@ -10,8 +10,14 @@ forward only (the counterpart of `recommendflow_tpu/ops/embedding.py`).
     of [R, dim]: a lookup gathers logical rows of `table.view(-1, dim)` at the
     global ids — bit-identical to the JAX wide-row take followed by the
     one-hot segment select, and 128 bytes read per id instead of 512.
-  * The gather is kernel 1 (ops/cuda/embedding_bag.py); masked pooling stays
-    in torch.
+  * The gather is `take_rows`: forward `gather_rows`, backward the sorted
+    duplicate sum (`segment_row_grads`) and `scatter_add_rows` into a zero
+    table (all three in ops/cuda/embedding_bag.py).
+    Masked pooling stays in torch.
+  * The split-update trainer gathers stored rows itself, outside autograd,
+    and hands them in under `rows_key(dim)`; `gather_group` then selects each
+    id's segment of its wide row, so autograd yields [N, P*dim] row
+    gradients and no table gradient.
   * Hashing features own two stacked branches (double hashing); pooled branch
     outputs concatenate to 2*dim.
   * id 0 of every member table is the pad/OOV row, zero-initialized and
@@ -19,6 +25,7 @@ forward only (the counterpart of `recommendflow_tpu/ops/embedding.py`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -26,7 +33,8 @@ import torch
 from recommendflow_tpu_torch.config.proto import FeaturePooling
 from recommendflow_tpu_torch.data.schema import (BatchSchema, FeatureSlot,
                                                  TableGroup)
-from recommendflow_tpu_torch.ops.cuda.embedding_bag import gather_rows
+from recommendflow_tpu_torch.ops.cuda.embedding_bag import (
+    gather_rows, scatter_add_rows, segment_row_grads)
 
 NEG_INF = -1e9
 POS_INF = 1e9
@@ -86,25 +94,88 @@ def init_group_table(generator: torch.Generator, group: TableGroup,
     return flat.view(rows // p, p * group.dim)
 
 
+class _TakeRows(torch.autograd.Function):
+    """rows = table[ids]; the backward sums the gradients of duplicate ids
+    (sorted, in f32, fixed size, the unique count kept on the device) and
+    scatter-adds them into a zero table with scatter_add_rows, rounding once
+    to the table's dtype. The JAX backward adds the duplicates one by one in
+    the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return gather_rows(table, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        rows = ctx.table_shape[0]
+        s, order = torch.sort(ids, stable=True)
+        summed, uid, _valid, n_valid = segment_row_grads(
+            s, g[order].float(), num_rows=rows)
+        dtable = torch.zeros(ctx.table_shape, dtype=ctx.table_dtype,
+                             device=g.device)
+        scatter_add_rows(uid, summed, dtable, n_valid)
+        return dtable, None
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`table[ids]` for table [R, W] and flat int32 ids [N], differentiable
+    in table: its gradient is a dense [R, W] table of table's dtype."""
+    return _TakeRows.apply(table, ids)
+
+
 def gather_group(table: torch.Tensor, group: TableGroup,
-                 global_ids: torch.Tensor) -> torch.Tensor:
+                 global_ids: torch.Tensor,
+                 wide_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gather logical rows from a stored stacked table.
 
     table: [rows/P, P*dim] (P read from the stored shape); global_ids: any int
     shape -> [..., dim] f32, cast after the gather so compute downstream is
-    full precision."""
+    full precision.
+
+    wide_rows: pre-gathered stored rows [N, P*dim] (N = global_ids.numel()),
+    the split-update path's rows: their values must equal the stored rows
+    `physical_ids(...)` names. Each id's segment is selected from its wide
+    row, so the gradient lands on wide_rows and none on the table."""
     dim = group.dim
     flat = global_ids.reshape(-1).to(torch.int32).contiguous()
-    rows = gather_rows(table.view(-1, dim), flat)
+    if wide_rows is None:
+        rows = take_rows(table.view(-1, dim), flat)
+    else:
+        n, width = flat.shape[0], table.shape[1]
+        if tuple(wide_rows.shape) != (n, width):
+            raise ValueError(
+                f"wide_rows shape {tuple(wide_rows.shape)} does not match the "
+                f"fused id layout ({n}, {width}): the model's embed pass "
+                f"differs from the trainer's fused_group_ids plan")
+        p = width // dim
+        seg = (flat.long() % p).view(n, 1, 1).expand(n, 1, dim)
+        rows = wide_rows.view(n, p, dim).gather(1, seg).view(n, dim)
     return rows.view(tuple(global_ids.shape) + (dim,)).float()
+
+
+def rows_key(dim: int) -> str:
+    """Reserved batch key carrying pre-gathered stored rows for a dim group
+    (split-update path)."""
+    return f"__rows_dim{dim}__"
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets_on(offsets: Tuple[int, ...], dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """A slot's branch offsets as a tensor on `device`, copied once: a copy
+    from pageable host memory makes the host wait for the card's queue."""
+    return torch.as_tensor(offsets, dtype=dtype, device=device)
 
 
 def _global_ids(schema: BatchSchema, slot: FeatureSlot,
                 ids: torch.Tensor) -> torch.Tensor:
     group = schema.groups[slot.dim]
-    offs = torch.as_tensor([group.offset_of(slot.name, h)
-                            for h in range(slot.num_hashes)],
-                           dtype=ids.dtype, device=ids.device)
+    offs = _offsets_on(tuple(group.offset_of(slot.name, h)
+                             for h in range(slot.num_hashes)),
+                       ids.dtype, ids.device)
     return ids + offs[None, :, None]
 
 
@@ -210,7 +281,8 @@ def embed_batch(params: Dict[str, torch.Tensor], schema: BatchSchema,
     for dim, group_slots in _sparse_by_dim(slots, exclude).items():
         group = schema.groups[dim]
         sizes, fused = _fused_ids(schema, group_slots, batch)  # [B, sum(HL)]
-        emb = gather_group(params[f"dim{dim}"], group, fused)  # [B, sum, dim]
+        emb = gather_group(params[f"dim{dim}"], group, fused,  # [B, sum, dim]
+                           wide_rows=batch.get(rows_key(dim)))
         offset = 0
         for s, size in zip(group_slots, sizes):
             ids = batch[s.name]
@@ -228,3 +300,21 @@ def concat_tower(features: Dict[str, torch.Tensor], schema: BatchSchema,
     parts = [features[s.name] for s in schema.tower_slots(tower)
              if s.name in features]
     return torch.cat(parts, dim=-1)
+
+
+def touched_stored_rows(schema: BatchSchema, params: Dict[str, torch.Tensor],
+                        batch: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """'dim{d}' -> SORTED stored-row ids this batch touches (the id math of
+    embed_batch's fused gather, divided by the packing factor read from the
+    stored shape). Duplicates are kept."""
+    out: Dict[str, torch.Tensor] = {}
+    for dim, group_slots in _sparse_by_dim(_slots(schema, None)).items():
+        key = f"dim{dim}"
+        if key not in params:
+            continue
+        p = params[key].shape[1] // dim
+        flat = torch.cat([_global_ids(schema, s, batch[s.name]).reshape(-1)
+                          for s in group_slots])
+        out[key] = torch.sort(flat // p if p > 1 else flat).values
+    return out

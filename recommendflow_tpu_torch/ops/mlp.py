@@ -2,6 +2,9 @@
 
 Submodules carry the flax auto-names (`BatchNorm_0`, `Dense_0`, ...) so that
 `interop.py` maps a flax variable tree onto the state dict one to one.
+Training mode follows the module's `train()`/`eval()` state: BatchNorm
+normalises with the batch statistics and updates its running ones, dropout
+drops.
 """
 from __future__ import annotations
 
@@ -42,12 +45,43 @@ def get_activation(name: Union[str, Callable]) -> Callable:
     return _ACTIVATIONS[name.lower()]
 
 
+class BatchNorm(nn.Module):
+    """flax's `nn.BatchNorm` over the last axis of [B, F] inputs.
+
+    Training: normalise with the batch mean and the BIASED variance
+    E[x^2] - E[x]^2 (clipped at 0), and move the running statistics as
+    `momentum * running + (1 - momentum) * batch` (flax's momentum: 0.99
+    keeps 99%). Eval: normalise with the running statistics. Both compute
+    (x - mean) * (rsqrt(var + eps) * weight) + bias, as flax does.
+    `nn.BatchNorm1d` cannot stand in: it moves the running variance with the
+    unbiased batch variance. The state-dict names are BatchNorm1d's."""
+
+    def __init__(self, features: int, eps: float = 1e-6,
+                 momentum: float = 0.99, device=None):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(dim=0)
+            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
 class MLP(nn.Module):
     """[norm -> dense -> activation -> dropout] x len(units).
 
-    BatchNorm uses the flax conventions: epsilon 1e-6 and momentum 0.99 in
-    flax's sense, which is 0.01 in torch's. In eval mode it normalises with
-    the running statistics, as flax's `use_running_average=True` does."""
+    BatchNorm follows flax (see `BatchNorm`): epsilon 1e-6, momentum 0.99."""
 
     def __init__(self, in_features: int, units: Sequence[int],
                  dropout: float = 0.0, activation: str = "relu",
@@ -69,8 +103,8 @@ class MLP(nn.Module):
         width = in_features
         for i, out in enumerate(self.units):
             if use_bn:
-                self.add_module(f"BatchNorm_{i}", nn.BatchNorm1d(
-                    width, eps=bn_epsilon, momentum=0.01, device=device))
+                self.add_module(f"BatchNorm_{i}", BatchNorm(
+                    width, eps=bn_epsilon, device=device))
             self.add_module(f"Dense_{i}", nn.Linear(width, out, device=device))
             width = out
 

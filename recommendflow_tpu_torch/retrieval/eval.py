@@ -3,7 +3,8 @@
 
 Rank-of-label extraction with a miss sentinel, batched search + eval and
 report formatting, as backend/utils/eval_utils.py:85-220 of the reference
-system.
+system; and `make_recall_evaluator`, the epoch-end recall evaluation of
+Trainer.fit (one grouped_score_max scan per query block on a large corpus).
 """
 from __future__ import annotations
 
@@ -125,3 +126,36 @@ def recall_report(metrics: Dict[str, float],
                      f"{metrics.get(f'mrr@{k}', 0):>10.4f} "
                      f"{metrics.get(f'ndcg@{k}', 0):>10.4f}")
     return "\n".join(lines)
+
+
+def make_recall_evaluator(eval_dataset,
+                          topk_list: Sequence[int] = (5, 10, 50, 100),
+                          metric: str = "cos",
+                          query_key: str = "user",
+                          item_key: str = "ad"):
+    """An EvalCallback function (train/callbacks.py): predict embeddings on
+    the eval set, index the deduplicated positive item vectors in a
+    FlatSearcher on the trainer's device, and score rank-of-label recall as
+    val_hit@K / val_mrr@K / val_ndcg@K (plus val_num_items).
+
+    Item identity: each eval row carries its positive item's embedding; rows
+    are deduplicated by rounded item vector to form the corpus, and the
+    row's own item index is the label."""
+    def eval_fn(trainer, state) -> Dict[str, float]:
+        out = trainer.predict(state, eval_dataset)
+        if query_key not in out or item_key not in out:
+            return {}       # a scoring model: val_auc comes from evaluate()
+        q, d, y = out[query_key], out[item_key], out.get("label")
+        corpus, labels, pos = build_eval_corpus(q, d, y)
+        if corpus is None:
+            return {}
+        searcher = FlatSearcher(q.shape[1], metric=metric,
+                                device=trainer.device).train(
+            corpus, items=np.arange(len(corpus)))
+        ks = clamp_topk(topk_list, len(corpus))
+        metrics = batch_compute_recall_score(searcher, q[pos], labels, ks)
+        logs = {f"val_{k}": v for k, v in metrics.items()}
+        logs["val_num_items"] = float(len(corpus))
+        return logs
+
+    return eval_fn

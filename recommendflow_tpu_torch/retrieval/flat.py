@@ -5,7 +5,7 @@
     block multiple (padded rows score NEG);
   * search streams query blocks through one of three exact paths, picked by
     corpus size exactly as the JAX package picks them:
-      - hierarchical tournament (large corpora): kernel 2
+      - hierarchical tournament (large corpora): grouped_score_max
         (ops/cuda/grouped_topk.py) computes the per-16-item group maxima
         without writing the [Q, N] score matrix, then `_tournament_select`
         rescoring the winning groups;
@@ -126,8 +126,8 @@ class FlatSearcher:
         G, G2 = _GROUP, _SUPERGROUP
         if n_pad % (G * G2) == 0 and n_pad // (G * G2) > max(k, 64) \
                 and n_pad >= _kernels._HIER_MIN_ITEMS:
-            # hierarchical tournament: kernel 2 forms the group maxima, so
-            # the [Q, N] score matrix never reaches device memory
+            # hierarchical tournament: grouped_score_max forms the group
+            # maxima, so the [Q, N] score matrix never reaches device memory
             vecs_g = self._vecs.view(n_pad // G, G, dim)
             sqn_g = self._sq_norms.view(n_pad // G, G) \
                 if self._sq_norms is not None else None

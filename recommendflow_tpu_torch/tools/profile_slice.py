@@ -1,6 +1,7 @@
-"""Where the time of the serving slice goes, on one card.
+"""Where the time of the serving and training slices goes, on one card.
 
     python -m recommendflow_tpu_torch.tools.profile_slice [--batches 64]
+        [--train_steps 10]
 
 At the full width of conf/bench_recall.yaml (random weights from a seed):
 
@@ -9,7 +10,12 @@ At the full width of conf/bench_recall.yaml (random weights from a seed):
     batch, device-busy time per batch (union of the kernels' intervals),
     the device's idle share, and device time by kernel;
   * search: one 4096-query FlatSearcher(metric="cos") search of the eval
-    corpus built from the predicted rows, profiled the same way.
+    corpus built from the predicted rows, profiled the same way;
+  * train/<mode>: Trainer.train_step over pre-built batches of 1024 for the
+    split path with strategy "dense", with "sparse_set", and for
+    table_update="dense" (the config's dropout), profiled the same way per
+    step, with the host's waits on the card in one step counted by CUDA's
+    sync debug mode (file:line of each).
 
 The profiler lists only some launches of the port's own kernels (they
 come from a ctypes library with its own CUDA runtime, which the profiler
@@ -54,7 +60,10 @@ def _device_stats(prof, wall_s: float, ours, top: int = 12):
     the top device-time entries by name."""
     spans, names = [], []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # user annotations (e.g. Optimizer.step) span kernels and the gaps
+        # between them: they are not device work of their own
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             spans.append((e.time_range.start, e.time_range.end))
             names.append(e.name)
     spans.sort()
@@ -78,7 +87,8 @@ def _device_stats(prof, wall_s: float, ours, top: int = 12):
         by_name.append((name + " (all launches x time alone)",
                         launches * alone_ms, launches))
     for a in prof.key_averages():
-        if getattr(a, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        if getattr(a, "device_type", None) != torch.autograd.DeviceType.CUDA \
+                or getattr(a, "is_user_annotation", False):
             continue               # host ops: their kernels are listed apart
         if any(symbol in a.key for symbol, _, _ in ours.values()):
             continue               # listed above from the launch count
@@ -95,9 +105,142 @@ def _device_stats(prof, wall_s: float, ours, top: int = 12):
                        for n, t, c in by_name[:top]]}
 
 
+class LaunchRecorder:
+    """Records the arguments of every launch of the port's table-path
+    kernels while installed (clones, so a recorded in-place launch can be
+    replayed), then times each recorded launch alone."""
+
+    KERNELS = {   # name -> (module attribute of the launch function, symbol)
+        "gather_rows": ("embedding_bag", "launch_gather_rows",
+                        "gather_rows_kernel"),
+        "scatter_add_rows": ("embedding_bag", "launch_scatter_add_rows",
+                             "scatter_add_rows_kernel"),
+        "rowwise_adagrad_update": ("table_update",
+                                   "launch_rowwise_adagrad_update",
+                                   "rowwise_adagrad_kernel"),
+        "sparse_adagrad_apply": ("sparse_apply", "launch_sparse_adagrad_apply",
+                                 "sparse_adagrad_kernel"),
+    }
+
+    def __init__(self):
+        import importlib
+        self.calls = {name: [] for name in self.KERNELS}
+        self._saved = []
+        for name, (mod, fn, _) in self.KERNELS.items():
+            module = importlib.import_module(
+                f"recommendflow_tpu_torch.ops.cuda.{mod}")
+            orig = getattr(module, fn)
+            self._saved.append((module, fn, orig))
+
+            def wrapped(*a, _orig=orig, _name=name, **kw):
+                clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+                self.calls[_name].append(
+                    (_orig, [clone(x) for x in a],
+                     {k: clone(v) for k, v in kw.items()}))
+                return _orig(*a, **kw)
+            setattr(module, fn, wrapped)
+
+    def remove(self):
+        for module, fn, orig in self._saved:
+            setattr(module, fn, orig)
+
+    def alone_ms(self):
+        """name -> (symbol, mean ms alone over the recorded launches)."""
+        out = {}
+        for name, calls in self.calls.items():
+            if calls:
+                # no id range check (a host read) inside a timed call
+                extra = {"check_ids": False} if name == "gather_rows" else {}
+                ms = [median_ms(lambda c=c: c[0](*c[1], **c[2], **extra),
+                                reps=10) for c in calls]
+                out[name] = (self.KERNELS[name][2], sum(ms) / len(ms))
+        return out
+
+
+def count_syncs(fn):
+    """Run fn() with CUDA's sync debug mode on: the operations that made the
+    host wait for the card, as {first line of torch's warning: count}."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.basename(w.filename)}:{w.lineno}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def profile_training(model, dev, steps: int):
+    """One JSON line per table-update mode: wall and device time per step
+    under torch.profiler, idle share, the port's kernels' launches and
+    device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.ops.cuda import (embedding_bag, sparse_apply,
+                                                  table_update)
+    from recommendflow_tpu_torch.train.trainer import Trainer
+    counters = {"gather_rows": embedding_bag.gather_rows,
+                "scatter_add_rows": embedding_bag.scatter_add_rows,
+                "rowwise_adagrad_update": table_update.rowwise_adagrad_update,
+                "sparse_adagrad_apply": sparse_apply.sparse_adagrad_apply}
+    batches = [synthetic_batch(model.schema, 1024, seed=50_000 + i)
+               for i in range(steps + 2)]
+    state = None
+    for mode, strategy in (("split", "dense"), ("split", "sparse_set"),
+                           ("dense", "dense")):
+        trainer = Trainer(model, table_update=mode, split_strategy=strategy,
+                          device=dev)
+        if state is None:
+            state = trainer.init_state(batches[0])
+        else:
+            trainer.plan(batches[0])
+        on_dev = [trainer._put(b) for b in batches]
+        trainer.train_step(state, on_dev[0])               # warm-up
+        syncs = count_syncs(lambda: trainer.train_step(state, on_dev[0]))
+        rec = LaunchRecorder()
+        trainer.train_step(state, on_dev[1])               # record one step
+        rec.remove()
+        alone = rec.alone_ms()
+        del rec
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in on_dev[2:]:
+                trainer.train_step(state, b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ours = {name: (sym, counters[name].launches, ms)
+                for name, (sym, ms) in alone.items()}
+        stats = _device_stats(prof, wall, ours)
+        stats.update(mode=f"{mode}/{strategy}" if mode == "split" else mode,
+                     steps=steps, per_step_wall_ms=wall / steps * 1e3,
+                     per_step_device_ms=stats["device_busy_ms"] / steps,
+                     launches_per_step={n: counters[n].launches / steps
+                                        for n in counters},
+                     host_syncs_per_step=syncs,
+                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(json.dumps({"part": f"train/{stats['mode']}", **stats}),
+              flush=True)
+        del on_dev
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="profile the serving slice")
+    ap = argparse.ArgumentParser(description="profile the serving and "
+                                 "training slices")
     ap.add_argument("--batches", type=int, default=64)
+    ap.add_argument("--train_steps", type=int, default=10)
     ap.add_argument("--corpus_batches", type=int, default=1024,
                     help="batches of 1024 predicted for the eval corpus")
     args = ap.parse_args(argv)
@@ -110,8 +253,8 @@ def main(argv=None) -> int:
     from recommendflow_tpu_torch.config import Configuration
     from recommendflow_tpu_torch.data.synthetic import synthetic_batch
     from recommendflow_tpu_torch.models.base import build_network
-    from recommendflow_tpu_torch.ops.cuda import embedding_bag as k1
-    from recommendflow_tpu_torch.ops.cuda import grouped_topk as k2
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as k_rows
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk as k_scan
     from recommendflow_tpu_torch.ops.embedding import fused_group_ids
     from recommendflow_tpu_torch.retrieval._kernels import _GROUP
     from recommendflow_tpu_torch.retrieval.eval import build_eval_corpus
@@ -127,15 +270,15 @@ def main(argv=None) -> int:
                for i in range(args.batches)]
     host_batch_ms = (time.perf_counter() - t0) / args.batches * 1e3
     predict(model, batches[:4], dev)                  # warm-up
-    # kernel 1 alone at this batch's shapes: one launch per dim group
+    # gather_rows alone at this batch's shapes: one launch per dim group
     fused = fused_group_ids(model.schema, {
         k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()})
     tables = model.embedder.tables()
-    k1_alone = sum(median_ms(lambda d=d, ids=ids: k1.launch_gather_rows(
+    rows_alone = sum(median_ms(lambda d=d, ids=ids: k_rows.launch_gather_rows(
         tables[f"dim{d}"].view(-1, d), ids.reshape(-1).contiguous(),
         check_ids=False)) for d, ids in fused.items()) / len(fused)
     torch.cuda.synchronize()
-    k1.gather_rows.launches = 0
+    k_rows.gather_rows.launches = 0
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -143,7 +286,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     stats = _device_stats(prof, wall, {"gather_rows": (
-        "gather_rows_kernel", k1.gather_rows.launches, k1_alone)})
+        "gather_rows_kernel", k_rows.gather_rows.launches, rows_alone)})
     stats.update(per_batch_wall_ms=wall / args.batches * 1e3,
                  per_batch_device_ms=stats["device_busy_ms"] / args.batches)
     print(json.dumps({"part": "predict", "card": torch.cuda.get_device_name(0),
@@ -156,21 +299,24 @@ def main(argv=None) -> int:
     searcher = FlatSearcher(128, metric="cos", device=dev).train(corpus)
     searcher.search(qv, topk=100)                     # warm-up
     q = torch.nn.functional.normalize(torch.from_numpy(qv).to(dev), dim=1)
-    k2_alone = median_ms(lambda: k2.launch_grouped_score_max(
+    scan_alone = median_ms(lambda: k_scan.launch_grouped_score_max(
         q, searcher._vecs, None, group=_GROUP, num_items=searcher.num_items),
         reps=5)
     torch.cuda.synchronize()
-    k2.grouped_score_max.launches = 0
+    k_scan.grouped_score_max.launches = 0
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         searcher.search(qv, topk=100)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     stats = _device_stats(prof, wall, {"grouped_score_max": (
-        "grouped_score_max_kernel", k2.grouped_score_max.launches, k2_alone)})
+        "grouped_score_max_kernel", k_scan.grouped_score_max.launches, scan_alone)})
     stats.update(corpus_items=searcher.num_items,
                  n_pad=int(searcher._vecs.shape[0]), queries=len(qv))
     print(json.dumps({"part": "search", **stats}), flush=True)
+    del searcher, out, corpus
+    torch.cuda.empty_cache()
+    profile_training(model, dev, args.train_steps)
     return 0
 
 

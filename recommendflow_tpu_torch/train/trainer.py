@@ -1,16 +1,57 @@
-"""Model inference over a dataset (the counterpart of
-`recommendflow_tpu/train/trainer.py:Trainer.predict`). The trainer itself
-arrives with the training slice.
+"""The training runtime on one card (the counterpart of
+`recommendflow_tpu/train/trainer.py`): `Trainer` with `init_state`,
+`train_step`, `evaluate`, `predict` and `fit`, and the module-level
+`predict`.
+
+A step runs eagerly on the card:
+
+  1. split path (table_update "split", or "auto" on a row_injection model):
+     each table's stored rows for the batch's fused ids are gathered OUTSIDE
+     autograd (gather_rows) and handed to the model, so autograd yields
+     [N, P*dim] row gradients and no table gradient;
+  2. forward (training mode: BatchNorm batch statistics, dropout) -> loss;
+     backward;
+  3. Adam on the dense parameters (the tables are in no Adam group);
+  4. the tables' row-wise Adagrad, in place under no_grad: per table
+     `split_table_update` with its strategy ("dense": scatter_add_rows +
+     rowwise_adagrad_update; "sparse_set": sparse_adagrad_apply; "sparse":
+     plain torch), or on the dense path (table_update "dense")
+     rowwise_adagrad_update on the table gradient that take_rows' backward
+     built with scatter_add_rows.
+
+The JAX trainer picks each split table's strategy from TPU cost constants;
+here it is an argument (default "dense"), until the card has a cost model of
+its own. Metrics stay on the device; `fit` reads them back once an epoch
+(and every `log_every` steps).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Mapping, Union
+import re
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from recommendflow_tpu_torch.data.pipeline import prefetch
 from recommendflow_tpu_torch.device import resolve_device
+from recommendflow_tpu_torch.ops.cuda.embedding_bag import gather_rows
+from recommendflow_tpu_torch.ops.cuda.table_update import rowwise_adagrad_update
+from recommendflow_tpu_torch.ops.embedding import (fused_group_ids,
+                                                   physical_ids, rows_key)
+from recommendflow_tpu_torch.train.callbacks import Callback, History
+from recommendflow_tpu_torch.train.checkpoint import load_state
+from recommendflow_tpu_torch.train.optimizers import (STRATEGIES,
+                                                      default_table_lr,
+                                                      init_accumulator,
+                                                      split_table_update)
+from recommendflow_tpu_torch.utils.logger import get_logger
+from recommendflow_tpu_torch.utils.tables import print_table
+
+log = get_logger("recflow.trainer")
+
+_TABLE = re.compile(r"table_dim(\d+)$")
 
 
 def to_device(batch: Mapping[str, np.ndarray], device: torch.device
@@ -44,3 +85,314 @@ def predict(model: torch.nn.Module, dataset: Iterable[Mapping[str, np.ndarray]],
             for k, v in out.items():
                 chunks.setdefault(k, []).append(v)
     return {k: torch.cat(v).cpu().numpy() for k, v in chunks.items()}
+
+
+@dataclass
+class TrainState:
+    """What a step reads and updates: the model (weights, BatchNorm
+    statistics), Adam over the dense parameters, one [R, 1] f32 row-wise
+    Adagrad accumulator per updated table ('dim{d}') and the step count."""
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    table_acc: Dict[str, torch.Tensor]
+    step: int = 0
+
+
+def table_params(model: torch.nn.Module) -> Dict[int, torch.nn.Parameter]:
+    """dim -> the stacked table parameter 'table_dim{d}'."""
+    return {int(m.group(1)): p for name, p in model.named_parameters()
+            if (m := _TABLE.search(name))}
+
+
+class Trainer:
+    """Trainer of one model on one device.
+
+    table_update: "auto" (split when the model has row_injection, else
+    dense), "split" or "dense"; "sparse" (the JAX package's touched-row
+    update from a dense table gradient) is not ported. split_strategy: one of
+    "dense", "sparse_set", "sparse", for every split table. device defaults to "cuda" and raises without a card
+    unless "cpu" is asked for; the model must live there."""
+
+    def __init__(self, model: torch.nn.Module, learning_rate: float = 1e-3,
+                 table_learning_rate: Optional[float] = None,
+                 table_update: str = "auto",
+                 split_strategy: str = "dense",
+                 device: Union[str, torch.device] = "cuda", seed: int = 0):
+        if table_update == "sparse":
+            raise NotImplementedError(
+                "table_update='sparse' is not ported (ROADMAP Queue 1, item "
+                "2); use 'split' or 'dense'")
+        if table_update not in ("auto", "split", "dense"):
+            raise ValueError(f"table_update must be auto|split|dense, got "
+                             f"'{table_update}'")
+        if split_strategy not in STRATEGIES:
+            raise ValueError(f"split_strategy {split_strategy!r}: one of "
+                             f"{STRATEGIES}")
+        self.device = resolve_device(device)
+        if any(p.device.type != self.device.type for p in model.parameters()):
+            raise ValueError(f"the model's parameters are not on {self.device}")
+        self.model = model
+        self.base_lr = learning_rate
+        self.table_lr = (default_table_lr(learning_rate)
+                         if table_learning_rate is None else table_learning_rate)
+        self.split = table_update in ("auto", "split") and \
+            getattr(model, "row_injection", False)
+        if table_update == "split" and not self.split:
+            log.warning("table_update='split' needs model.row_injection; "
+                        "the tables take the dense path")
+        self.split_strategy = split_strategy
+        self.table_update = table_update
+        self._split_dims: Dict[int, str] = {}
+        self._planned = False
+        self.seed = seed
+        self.control: Dict[str, Any] = {"stop": False, "lr_scale": 1.0}
+
+    # ------------------------------------------------------------- state
+    def _put(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        if all(isinstance(v, torch.Tensor) for v in batch.values()):
+            return {k: v.to(self.device, non_blocking=True)
+                    for k, v in batch.items()}
+        return to_device(batch, self.device)
+
+    def plan(self, sample_batch: Mapping[str, Any]) -> List[int]:
+        """Decide which tables take the split path (and with which strategy)
+        from the sparse slots a sample batch carries. Returns the dims that
+        need an accumulator."""
+        schema = self.model.schema
+        tables = table_params(self.model)
+        in_batch = {schema.slots[n].dim for n in schema.order
+                    if schema.slots[n].kind == "sparse" and n in sample_batch}
+        self._planned = True
+        if not self.split:
+            self._split_dims = {}
+            return sorted(tables)
+        self._split_dims = {d: self.split_strategy for d in sorted(tables)
+                            if d in in_batch}
+        return list(self._split_dims)
+
+    def init_state(self, sample_batch: Mapping[str, Any]) -> TrainState:
+        """Plan the table updates from a sample batch and build the state.
+        Dropout draws from torch's generator, seeded here with `seed`."""
+        torch.manual_seed(self.seed)
+        tables = table_params(self.model)
+        table_acc = {f"dim{d}": init_accumulator(tables[d])
+                     for d in self.plan(sample_batch)}
+        dense = [p for name, p in self.model.named_parameters()
+                 if not _TABLE.search(name)]
+        optimizer = torch.optim.Adam(dense, lr=self.base_lr)
+        if self._split_dims:
+            self._validate_row_injection(self._put(sample_batch))
+            log.info("split table updates: %s (rows gathered outside "
+                     "autograd; no table gradient)",
+                     {f"dim{d}": s for d, s in self._split_dims.items()})
+        n = sum(p.numel() for p in self.model.parameters())
+        log.info("initialized %s: %.3fM params on %s",
+                 type(self.model).__name__, n / 1e6, self.device)
+        return TrainState(self.model, optimizer, table_acc, 0)
+
+    def _validate_row_injection(self, batch: Dict[str, torch.Tensor]) -> None:
+        """One tiny forward/backward with the rows injected: every split
+        table's .grad must still be None. A model flagged row_injection that
+        reads a table anywhere else would train with that read's gradient
+        silently dropped (the split path never applies a table gradient)."""
+        tiny = {k: v[:2] for k, v in batch.items()}
+        tables = table_params(self.model)
+        saved = {k: b.clone() for k, b in self.model.named_buffers()}
+        try:
+            self._forward_backward(tiny)
+            offending = [d for d in self._split_dims
+                         if tables[d].grad is not None]
+        finally:
+            with torch.no_grad():
+                for k, b in self.model.named_buffers():
+                    b.copy_(saved[k])
+            self.model.zero_grad(set_to_none=True)
+        if offending:
+            raise ValueError(
+                f"{type(self.model).__name__} sets row_injection=True but "
+                f"its training forward still reads table(s) "
+                f"{[f'dim{d}' for d in offending]} outside the injected "
+                f"embed pass: under the split path those reads' gradients "
+                f"would be silently dropped. Route every table read through "
+                f"the one embed_batch pass, or set row_injection = False.")
+
+    # -------------------------------------------------------------- steps
+    def _forward_backward(self, batch: Dict[str, torch.Tensor]):
+        """Training forward and backward. Returns (loss, aux, phys, rows):
+        on the split path phys[d] are the stored-row ids and rows[d] the
+        gathered rows of table d, whose .grad holds the row gradients."""
+        model = self.model
+        model.train()
+        model.zero_grad(set_to_none=True)
+        phys: Dict[int, torch.Tensor] = {}
+        rows: Dict[int, torch.Tensor] = {}
+        b = batch
+        if self._split_dims:
+            gids = fused_group_ids(model.schema, batch)
+            tables = table_params(model)
+            b = dict(batch)
+            for d in self._split_dims:
+                if d in gids:
+                    t = tables[d].detach()
+                    pid = physical_ids(t, d, gids[d]).to(torch.int32).contiguous()
+                    r = gather_rows(t, pid).requires_grad_()
+                    phys[d], rows[d], b[rows_key(d)] = pid, r, r
+        loss, aux = model(b)
+        loss.backward()
+        return loss, aux, phys, rows
+
+    def _apply_table_updates(self, state: TrainState,
+                             phys: Dict[int, torch.Tensor],
+                             rows: Dict[int, torch.Tensor]) -> None:
+        """The tables' row-wise Adagrad, in place."""
+        tables = table_params(self.model)
+        with torch.no_grad():
+            if self._split_dims:
+                for d, strategy in self._split_dims.items():
+                    if d in phys:
+                        split_table_update(
+                            tables[d].detach(), state.table_acc[f"dim{d}"],
+                            phys[d], rows[d].grad, lr=self.table_lr,
+                            strategy=strategy)
+                return
+            for d, t in tables.items():
+                if t.grad is not None:
+                    rowwise_adagrad_update(t.detach(), state.table_acc[f"dim{d}"],
+                                           t.grad, lr=self.table_lr)
+                    t.grad = None
+
+    def train_step(self, state: TrainState, batch: Mapping[str, Any]):
+        """One step, in place on `state`. Returns (state, metrics) with the
+        metrics as device scalars."""
+        loss, aux, phys, rows = self._forward_backward(self._put(batch))
+        state.optimizer.step()
+        self._apply_table_updates(state, phys, rows)
+        state.step += 1
+        return state, {"loss": loss.detach(),
+                       **{k: v.detach() for k, v in aux.items()}}
+
+    def set_learning_rate(self, state: TrainState, lr: float) -> None:
+        """The dense LR (the tables keep their fixed Adagrad LR)."""
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+
+    # --------------------------------------------------------------- loops
+    def predict(self, state: TrainState, dataset: Iterable) -> Dict[str, np.ndarray]:
+        return predict(state.model, dataset, self.device)
+
+    def evaluate(self, state: TrainState, dataset: Iterable) -> Dict[str, float]:
+        """val_loss (the model's loss on eval outputs) and val_auc (cosine
+        similarity against the label)."""
+        from recommendflow_tpu_torch.train.metrics import roc_auc
+        model = state.model
+        try:
+            loss_fn = model.resolve_loss()
+        except (AttributeError, ValueError):
+            loss_fn = None
+        losses, scores, labels = [], [], []
+        model.eval()
+        with torch.no_grad():
+            for batch in prefetch(iter(dataset)):
+                out = model(self._put(batch))
+                if "user" in out and "ad" in out:
+                    y, u, a = out["label"], out["user"], out["ad"]
+                    if loss_fn is not None:
+                        losses.append(loss_fn(y, u, a))
+                    scores.append(torch.sum(u * a, dim=1))
+                    labels.append(y)
+                elif "score" in out:
+                    scores.append(out["score"].reshape(-1))
+                    labels.append(out["label"].reshape(-1))
+        logs: Dict[str, float] = {}
+        if losses:
+            logs["val_loss"] = float(torch.stack(losses).mean())
+        if scores:
+            auc = roc_auc(torch.cat(labels).cpu().numpy(),
+                          torch.cat(scores).cpu().numpy())
+            if np.isfinite(auc):
+                logs["val_auc"] = auc
+        return logs
+
+    def fit(self, train_ds: Iterable, epochs: int = 1,
+            valid_ds: Optional[Iterable] = None,
+            callbacks: Optional[List[Callback]] = None,
+            log_every: int = 100, state: Optional[TrainState] = None,
+            resume_data: bool = True, verbose: bool = True) -> Dict[str, Any]:
+        """Train `epochs` epochs; returns {'state', 'history'}. Each epoch's
+        logs hold the mean step metrics, examples_per_sec (the host clock
+        around the epoch, read after the card finished it), the validation
+        metrics and what the callbacks add. A given `state` with steps done
+        resumes mid-stream when train_ds has a length (resume_data)."""
+        callbacks = list(callbacks or [])
+        history = History()
+        callbacks.append(history)
+        start_epoch, skip = 0, 0
+        first, it = None, None
+        if state is None:
+            it = iter(train_ds)
+            first = next(it)
+            state = self.init_state(first)
+        elif not self._planned:
+            # a state from another trainer (or a checkpoint): plan this one
+            self.plan(next(iter(train_ds)))
+        if state.step and resume_data and hasattr(train_ds, "__len__"):
+            per_epoch = len(train_ds)
+            if per_epoch:
+                start_epoch = min(state.step // per_epoch, epochs)
+                skip = state.step % per_epoch
+        self.control["stop"] = False
+        for cb in callbacks:
+            cb.on_train_begin(self)
+        lr_scale = 1.0
+        logs: Dict[str, float] = {}
+        for epoch in range(start_epoch, epochs):
+            if self.control["stop"]:
+                break
+            if self.control["lr_scale"] != lr_scale:
+                lr_scale = self.control["lr_scale"]
+                self.set_learning_rate(state, self.base_lr * lr_scale)
+                log.info("epoch %d: lr set to %.6g", epoch, self.base_lr * lr_scale)
+            if first is not None:
+                raw = _chain_first(first, it)
+                first = None
+            elif hasattr(train_ds, "iter_from"):
+                raw = train_ds.iter_from(skip if epoch == start_epoch else 0,
+                                         epoch=epoch)
+            else:
+                raw = iter(train_ds)
+            t0 = time.perf_counter()
+            n_steps, n_examples = 0, 0
+            running: Dict[str, torch.Tensor] = {}
+            for batch in prefetch(raw):
+                state, metrics = self.train_step(state, batch)
+                n_steps += 1
+                n_examples += len(next(iter(batch.values())))
+                for k, v in metrics.items():
+                    running[k] = running[k] + v if k in running else v
+                if n_steps % log_every == 0:
+                    log.info("epoch %d step %d: %s", epoch, n_steps, " ".join(
+                        f"{k}={float(v):.5f}" for k, v in metrics.items()))
+            # the read-back waits for the card, so dt covers the epoch's work
+            logs = {k: float(v) / max(n_steps, 1) for k, v in running.items()}
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = time.perf_counter() - t0
+            logs["examples_per_sec"] = n_examples / max(dt, 1e-9)
+            if valid_ds is not None:
+                logs.update(self.evaluate(state, valid_ds))
+            for cb in callbacks:
+                cb.on_epoch_end(self, state, epoch, logs)
+            if "restore_state" in self.control:
+                load_state(state, self.control.pop("restore_state"))
+            if verbose:
+                print_table([[k, f"{v:.6g}"] for k, v in sorted(logs.items())],
+                            headers=["metric", "value"],
+                            title=f"Epoch {epoch} ({dt:.1f}s, {n_steps} steps)")
+        for cb in callbacks:
+            cb.on_train_end(self, state, logs)
+        return {"state": state, "history": history.epochs}
+
+
+def _chain_first(first, rest):
+    yield first
+    yield from rest

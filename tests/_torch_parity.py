@@ -42,3 +42,62 @@ def bf16_bits(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().view(torch.int16).numpy().view(np.uint16)
     return np.asarray(x).view(np.uint16)
+
+
+def _states(tree, cls):
+    import jax
+    return [x for x in jax.tree_util.tree_leaves(
+        tree, is_leaf=lambda x: isinstance(x, cls)) if isinstance(x, cls)]
+
+
+def _nested(tree):
+    """A pytree of arrays (masked leaves dropped) -> nested dict of numpy."""
+    import jax
+    from recommendflow_tpu_torch.interop import unflatten
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return unflatten({tuple(str(getattr(k, "key", k)) for k in path):
+                      np.asarray(leaf) for path, leaf in flat})
+
+
+def jax_state_tree(state):
+    """A JAX TrainState of the default partitioned optimizer as the port's
+    training-state tree (recommendflow_tpu_torch/interop.py): params,
+    batch_stats, the tables' row-wise Adagrad accumulators (the split path's
+    table_acc, or the optax accumulators of the dense path), the dense
+    leaves' Adam moments and count, and the step."""
+    import optax
+    from recommendflow_tpu.train.optimizers import RowwiseAdagradState
+    (adam,) = _states(state.opt_state, optax.ScaleByAdamState)
+    if state.table_acc:
+        accs = {k: np.asarray(v) for k, v in state.table_acc.items()}
+    else:
+        (ada,) = _states(state.opt_state, RowwiseAdagradState)
+        flat = {p[-1]: v for p, v in _flat(_nested(ada.accumulator)).items()}
+        accs = {k.replace("table_", ""): v for k, v in flat.items()
+                if k.startswith("table_dim")}
+    return {"params": _nested(state.params),
+            "batch_stats": _nested(state.batch_stats),
+            "table_acc": accs,
+            "opt": {"mu": _nested(adam.mu), "nu": _nested(adam.nu),
+                    "count": int(adam.count)},
+            "step": int(state.step)}
+
+
+def _flat(tree):
+    from recommendflow_tpu_torch.interop import flatten
+    return flatten(tree)
+
+
+def flat_tree(tree):
+    """Training-state tree -> {'/'-joined path: numpy or int}."""
+    return {"/".join(k): v for k, v in _flat(tree).items()}
+
+
+def bf16_ulp_err(a, b) -> float:
+    """Largest |a - b| in units of the bf16 spacing at max(|a|, |b|) (a
+    difference of one rounding is <= 1 however close to zero the values
+    are)."""
+    a32, b32 = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    mag = np.maximum(np.maximum(np.abs(a32), np.abs(b32)), np.float32(2.0 ** -126))
+    spacing = np.exp2(np.floor(np.log2(mag)) - 7)
+    return float((np.abs(a32 - b32) / spacing).max()) if a32.size else 0.0

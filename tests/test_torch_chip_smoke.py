@@ -1,6 +1,7 @@
 """chip_smoke.py's contract where there is no card: it exits non-zero and
 prints no result, alone in a directory as well, and its CPU rehearsal drives
-every phase at toy sizes through the plain versions."""
+every phase at toy sizes through the plain versions (the serving slice, the
+training run of the three table-update modes, the CLIs)."""
 import json
 import os
 import shutil
@@ -40,8 +41,21 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
         if line.startswith('{"phase"'):
             rec = json.loads(line)
             phases[rec["phase"]] = rec
-    assert sorted(phases) == ["cli", "kernel1", "kernel2", "slice"]
-    assert phases["kernel1"]["bitwise_equal"] is True
-    assert max(phases["kernel2"]["max_abs_err"].values()) <= 1e-4
+    assert sorted(phases) == sorted(
+        ["cli", "gather_rows", "grouped_score_max", "scatter_add_rows",
+         "rowwise_adagrad_update", "sparse_adagrad_apply", "slice", "train"])
+    assert phases["gather_rows"]["bitwise_equal"] is True
+    assert max(phases["grouped_score_max"]["max_abs_err"].values()) <= 1e-4
+    assert phases["scatter_add_rows"]["bitwise_equal"] is True
+    for name in ("rowwise_adagrad_update", "sparse_adagrad_apply"):
+        assert phases[name]["p_ulps"] == 0 and phases[name]["untouched_bitwise"]
     assert phases["slice"]["top100_score_err"] <= 1e-5
+    train = phases["train"]
+    assert sorted(train["runs"]) == ["dense", "sparse_set", "table_dense", "warm"]
+    # one entry per split strategy and table: "<strategy>/dim<d>"
+    assert sorted({k.split("/")[0] for k in train["update_check"]}) == [
+        "dense", "sparse_set"]
+    assert all(c["p_ulps"] == 0 for c in train["update_check"].values())
+    assert all(k.startswith("val_") for k in train["recall"])
     assert phases["cli"]["predict_vs_model"] <= 1e-5
+    assert phases["cli"]["trained_predict_vs_model"] <= 1e-5

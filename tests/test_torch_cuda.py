@@ -5,9 +5,32 @@ needed there, so conftest.py is skipped):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Kernel 1 must equal its plain version bitwise; kernel 2 agrees to atol 1e-4
-(f32 sums in another order); the search and the model agree with their CPU
-runs to 1e-5 and 2e-5.
+gather_rows and scatter_add_rows must equal their plain versions bitwise;
+grouped_score_max agrees to atol 1e-4 (f32 sums in another order);
+rowwise_adagrad_update and sparse_adagrad_apply agree to 1 ulp of the table
+type for p and rtol 1e-6 for acc (a row's mean is reduced in another order,
+so acc may differ in its last bit and p by one rounding), untouched rows
+bitwise, and rows whose gradient is all +0.0 are the only rows skipped;
+the search and the model
+agree with their CPU runs to 1e-5 and 2e-5. Ulps are measured at the larger
+magnitude of the two values.
+
+Training steps on the card agree with the same steps on the CPU; the GEMMs
+and the duplicate sums add in another order on each device, so gradients
+differ in their last bits:
+
+  * losses rtol 1e-5;
+  * f32 tables (three steps) rtol 1e-5 + atol 1e-6;
+  * bf16 tables (one step; a flipped rounding compounds over later steps)
+    within 1 ulp plus 2^-7 of the row's update: the "dense" strategies
+    round the summed gradient to bf16 before the update, and a gradient
+    that lands on the other side of a rounding moves the update by up to
+    2^-8 of itself, which is several ulps of a result that nearly cancels;
+  * the other float leaves rtol 1e-4 + atol 1e-5, except that at most 0.1%
+    of a leaf's elements may differ by up to Adam's step (lr per step):
+    Adam normalises each gradient by its own magnitude, so an element whose
+    gradient is at the level of the summation noise takes a step of another
+    size or sign on each device.
 """
 import numpy as np
 import pytest
@@ -32,21 +55,21 @@ def cuda():
     (torch.bfloat16, 64), (torch.bfloat16, 32), (torch.float16, 5),
     (torch.bfloat16, 256)])
 def test_gather_rows_kernel_bitwise(cuda, dtype, width):
-    from recommendflow_tpu_torch.ops.cuda import embedding_bag as k1
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag
     g = torch.Generator(device=cuda).manual_seed(0)
     table = torch.randn((5000, width), generator=g, device=cuda).to(dtype)
     ids = torch.randint(0, 5000, (3001,), generator=g, device=cuda,
                         dtype=torch.int32)
-    before = k1.gather_rows.launches
-    got = k1.gather_rows(table, ids)
+    before = embedding_bag.gather_rows.launches
+    got = embedding_bag.gather_rows(table, ids)
     torch.cuda.synchronize()
-    assert k1.gather_rows.launches == before + 1
-    assert torch.equal(got, k1.gather_rows_plain(table, ids))
+    assert embedding_bag.gather_rows.launches == before + 1
+    assert torch.equal(got, embedding_bag.gather_rows_plain(table, ids))
     with pytest.raises(IndexError):
-        k1.gather_rows(table, torch.tensor([0, 5000], dtype=torch.int32,
-                                           device=cuda))
+        embedding_bag.gather_rows(
+            table, torch.tensor([0, 5000], dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
-        k1.gather_rows(table, ids.long())
+        embedding_bag.gather_rows(table, ids.long())
 
 
 @pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
@@ -55,31 +78,33 @@ def test_gather_rows_kernel_bitwise(cuda, dtype, width):
     (37, 1024 + 64, 40, 16), (256, 4096, 128, 16), (5, 512, 7, 4),
     (130, 2048, 64, 64)])
 def test_grouped_score_max_kernel(cuda, vec_dtype, l2, q, n_pad, d, group):
-    from recommendflow_tpu_torch.ops.cuda import grouped_topk as k2
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk
     g = torch.Generator(device=cuda).manual_seed(1)
     qs = torch.randn((q, d), generator=g, device=cuda)
     v = torch.randn((n_pad, d), generator=g, device=cuda).to(vec_dtype)
     sqn = (v.float() ** 2).sum(1) if l2 else None
     num_items = n_pad - 3 * group // 2
-    got = k2.grouped_score_max(qs, v, sqn, group=group, num_items=num_items)
-    ref = k2.grouped_score_max_plain(qs, v, sqn, group=group,
-                                     num_items=num_items)
+    got = grouped_topk.grouped_score_max(qs, v, sqn, group=group,
+                                         num_items=num_items)
+    ref = grouped_topk.grouped_score_max_plain(qs, v, sqn, group=group,
+                                               num_items=num_items)
     torch.cuda.synchronize()
     assert got.shape == (q, n_pad // group)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
     with pytest.raises(ValueError):
-        k2.grouped_score_max(qs, v, sqn, group=12, num_items=num_items)
+        grouped_topk.grouped_score_max(qs, v, sqn, group=12,
+                                       num_items=num_items)
 
 
 def test_flat_searcher_card_matches_cpu(cuda):
-    from recommendflow_tpu_torch.ops.cuda import grouped_topk as k2
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk
     from recommendflow_tpu_torch.retrieval.flat import FlatSearcher
     rng = np.random.RandomState(0)
     vecs = rng.randn(262144 - 1000, 128).astype(np.float32)
     qs = rng.randn(50, 128).astype(np.float32)
-    before = k2.grouped_score_max.launches
+    before = grouped_topk.grouped_score_max.launches
     _, s_gpu, i_gpu = FlatSearcher(128, "cos", device=cuda).train(vecs).search(qs, 100)
-    assert k2.grouped_score_max.launches == before + 1
+    assert grouped_topk.grouped_score_max.launches == before + 1
     _, s_cpu, i_cpu = FlatSearcher(128, "cos", device="cpu").train(vecs).search(qs, 100)
     np.testing.assert_allclose(s_gpu, s_cpu, rtol=0, atol=1e-5)
     assert (i_gpu == i_cpu).mean() > 0.99
@@ -89,7 +114,7 @@ def test_dssm_card_matches_cpu(cuda):
     from recommendflow_tpu_torch.config import Configuration
     from recommendflow_tpu_torch.data.synthetic import synthetic_batch
     from recommendflow_tpu_torch.models.matching.dssm import Dssm
-    from recommendflow_tpu_torch.ops.cuda import embedding_bag as k1
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag
     from recommendflow_tpu_torch.train.trainer import predict
     conf = Configuration(tp.DEMO_CONF)
     conf.networks["table_dtype"] = "bfloat16"
@@ -97,9 +122,179 @@ def test_dssm_card_matches_cpu(cuda):
     cpu = Dssm(conf, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     batches = [synthetic_batch(gpu.schema, 64, seed=i) for i in range(3)]
-    before = k1.gather_rows.launches
+    before = embedding_bag.gather_rows.launches
     a = predict(gpu, batches, cuda)
-    assert k1.gather_rows.launches == before + 2 * 3   # two dim groups
+    assert embedding_bag.gather_rows.launches == before + 2 * 3   # two dim groups
     b = predict(cpu, batches, "cpu")
     for k in ("user", "ad"):
         np.testing.assert_allclose(a[k], b[k], rtol=0, atol=2e-5)
+
+
+def _ulps(a, b):
+    """Largest |a - b| in units of the type's spacing at max(|a|, |b|)."""
+    bits = 7 if a.dtype == torch.bfloat16 else 23
+    a32, b32 = a.float(), b.float()
+    mag = torch.maximum(a32.abs(), b32.abs()).clamp(min=2.0 ** -126)
+    spacing = torch.exp2(torch.floor(torch.log2(mag)) - bits)
+    return float(((a32 - b32).abs() / spacing).max())
+
+
+def _update_inputs(cuda, dtype, width, rows=3000, n=2500, seed=0):
+    from recommendflow_tpu_torch.ops.cuda.embedding_bag import segment_row_grads
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    p = torch.randn((rows, width), generator=g, device=cuda).to(dtype)
+    acc = torch.rand((rows, 1), generator=g, device=cuda) + 0.1
+    ids = torch.randint(0, rows - 500, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    grads = torch.randn((n, width), generator=g, device=cuda) * 0.01
+    s_, order = torch.sort(ids, stable=True)
+    summed, uid, _, n_valid = segment_row_grads(s_, grads[order], num_rows=rows)
+    touched = torch.zeros(rows, dtype=torch.bool, device=cuda)
+    touched[ids.long()] = True
+    return p, acc, uid, summed, n_valid, touched
+
+
+WIDTHS = [(torch.bfloat16, 256), (torch.float32, 128), (torch.bfloat16, 64),
+          (torch.float32, 12), (torch.bfloat16, 3)]
+
+
+@pytest.mark.parametrize("dtype,width", WIDTHS)
+def test_scatter_add_rows_kernel_bitwise(cuda, dtype, width):
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as k
+    p, _, uid, summed, n_valid, _ = _update_inputs(cuda, dtype, width)
+    got, ref = p.clone(), p.clone()
+    before = k.scatter_add_rows.launches
+    k.scatter_add_rows(uid, summed, got, n_valid)
+    k.scatter_add_rows_plain(uid, summed, ref, n_valid)
+    torch.cuda.synchronize()
+    assert k.scatter_add_rows.launches == before + 1
+    assert _ulps(got, ref) == 0
+    # entries past n_valid are never applied
+    short = p.clone()
+    k.scatter_add_rows(uid, summed, short, torch.ones(1, dtype=torch.int32,
+                                                      device=cuda))
+    changed = (short != p).any(1).nonzero().flatten().tolist()
+    assert changed == [int(uid[0])]
+    with pytest.raises(ValueError):
+        k.scatter_add_rows(uid, summed.to(torch.bfloat16), got, n_valid)
+    with pytest.raises(ValueError):
+        k.scatter_add_rows(uid.long(), summed, got, n_valid)
+
+
+@pytest.mark.parametrize("dtype,width", WIDTHS)
+def test_rowwise_adagrad_update_kernel(cuda, dtype, width):
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as kr
+    from recommendflow_tpu_torch.ops.cuda import table_update as k
+    p, acc, uid, summed, n_valid, touched = _update_inputs(cuda, dtype, width)
+    gd = torch.zeros_like(p)
+    kr.scatter_add_rows(uid, summed, gd, n_valid)
+    p1, a1, p2, a2 = p.clone(), acc.clone(), p.clone(), acc.clone()
+    before = k.rowwise_adagrad_update.launches
+    k.rowwise_adagrad_update(p1, a1, gd, lr=0.05)
+    k.rowwise_adagrad_update_plain(p2, a2, gd, lr=0.05)
+    torch.cuda.synchronize()
+    assert k.rowwise_adagrad_update.launches == before + 1
+    assert _ulps(p1, p2) <= 1
+    torch.testing.assert_close(a1, a2, rtol=1e-6, atol=0)
+    assert torch.equal(p1[~touched], p[~touched])
+    assert torch.equal(a1[~touched], acc[~touched])
+    with pytest.raises(ValueError):
+        k.rowwise_adagrad_update(p1, a1.view(-1), gd, lr=0.05)
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 64),
+                                         (torch.bfloat16, 64),
+                                         (torch.float32, 3)])
+def test_rowwise_adagrad_update_skips_only_all_zero_rows(cuda, dtype, width):
+    """Rows whose squares underflow to 0 (|g| ~ 1e-30) and rows of -0.0 are
+    updated as the plain version updates them; only all-+0.0 rows are left
+    alone. The p values are tiny and -0.0, where a skipped update shows."""
+    from recommendflow_tpu_torch.ops.cuda import table_update as k
+    g = torch.zeros((4, width), dtype=torch.float32, device=cuda)
+    g[1, 0] = 1e-30                          # g^2 underflows, g does not
+    g[2] = -0.0
+    g[3] = torch.linspace(-1e-2, 1e-2, width, device=cuda)
+    p = torch.full((4, width), 1e-31, dtype=torch.float32, device=cuda)
+    p[:, 1:] = -0.0
+    p, g = p.to(dtype), g.to(dtype)
+    acc = torch.full((4, 1), 0.1, device=cuda)
+    p1, a1, p2, a2 = p.clone(), acc.clone(), p.clone(), acc.clone()
+    k.rowwise_adagrad_update(p1, a1, g, lr=0.05)
+    k.rowwise_adagrad_update_plain(p2, a2, g, lr=0.05)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(p1.view(bits), p2.view(bits))
+    assert torch.equal(a1, a2)
+    assert torch.equal(p1[0].view(bits), p[0].view(bits))     # left alone
+    assert not torch.equal(p1[1:3].view(bits), p[1:3].view(bits))
+
+
+@pytest.mark.parametrize("dtype,width", WIDTHS)
+def test_sparse_adagrad_apply_kernel(cuda, dtype, width):
+    from recommendflow_tpu_torch.ops.cuda import sparse_apply as k
+    p, acc, uid, summed, n_valid, touched = _update_inputs(cuda, dtype, width)
+    p1, a1, p2, a2 = p.clone(), acc.clone(), p.clone(), acc.clone()
+    before = k.sparse_adagrad_apply.launches
+    k.sparse_adagrad_apply(p1, a1, uid, summed, n_valid, lr=0.05)
+    k.sparse_adagrad_apply_plain(p2, a2, uid, summed, n_valid, lr=0.05)
+    torch.cuda.synchronize()
+    assert k.sparse_adagrad_apply.launches == before + 1
+    assert _ulps(p1, p2) <= 1
+    torch.testing.assert_close(a1, a2, rtol=1e-6, atol=0)
+    assert torch.equal(p1[~touched], p[~touched])
+    assert torch.equal(a1[~touched], acc[~touched])
+
+
+@pytest.mark.parametrize("table_dtype,steps", [("float32", 3),
+                                               ("bfloat16", 1)])
+@pytest.mark.parametrize("mode,strategy", [("split", "dense"),
+                                           ("split", "sparse_set"),
+                                           ("dense", "dense")])
+def test_train_steps_card_match_cpu(cuda, mode, strategy, table_dtype, steps):
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.matching.dssm import Dssm
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as kr
+    from recommendflow_tpu_torch.ops.cuda import sparse_apply as ks
+    from recommendflow_tpu_torch.ops.cuda import table_update as kt
+    from recommendflow_tpu_torch.train.trainer import Trainer
+    conf = Configuration(tp.DEMO_CONF)
+    conf.networks["table_dtype"] = table_dtype
+    gpu = Dssm(conf, device=cuda, dropout=0.0, seed=3)
+    cpu = Dssm(conf, device="cpu", dropout=0.0)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    batches = [synthetic_batch(gpu.schema, 64, seed=i) for i in range(steps)]
+    start = {k: v.detach().clone() for k, v in cpu.state_dict().items()}
+    counts =[f.launches for f in (kr.scatter_add_rows, kt.rowwise_adagrad_update,
+                                   ks.sparse_adagrad_apply)]
+    runs = {}
+    for dev, model in ((cuda, gpu), ("cpu", cpu)):
+        t = Trainer(model, table_update=mode, split_strategy=strategy, device=dev)
+        state = t.init_state(batches[0])
+        losses = [float(t.train_step(state, b)[1]["loss"]) for b in batches]
+        runs[str(dev)] = (losses, {k: v.detach().cpu() for k, v in
+                                   model.state_dict().items()})
+    launched = [f.launches - c for f, c in zip(
+        (kr.scatter_add_rows, kt.rowwise_adagrad_update, ks.sparse_adagrad_apply),
+        counts)]
+    n = 2 * steps                                   # two tables a step
+    assert launched == ([0, 0, n] if strategy == "sparse_set" else [n, n, 0])
+    (gl, gs), (cl, cs) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(gl, cl, rtol=1e-5)
+    lr = 1e-3                                       # the Trainer's default
+    for k in cs:
+        if "table_dim" in k and table_dtype == "bfloat16":
+            a, b = gs[k].float(), cs[k].float()
+            mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+            ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            step = (b - start[k].float()).abs()
+            assert bool(((a - b).abs() <= ulp + 2 ** -7 * step).all()), k
+        elif "table_dim" in k:
+            torch.testing.assert_close(gs[k], cs[k], rtol=1e-5, atol=1e-6)
+        elif gs[k].is_floating_point():
+            diff = (gs[k] - cs[k]).abs()
+            off = diff > 1e-5 + 1e-4 * cs[k].abs()
+            assert int(off.sum()) <= 1e-3 * off.numel(), k
+            assert float(diff.max()) <= 2 * lr * steps, k
+        else:
+            assert torch.equal(gs[k], cs[k]), k

@@ -1,4 +1,4 @@
-"""The port's embedding engine and kernel 1's plain version against the JAX
+"""The port's embedding engine and gather_rows' plain version against the JAX
 package: gathers exact (bitwise), pooled f32 at rtol = atol = 1e-6 (the
 same sums of the same f32 values, taken by another library)."""
 import ml_dtypes

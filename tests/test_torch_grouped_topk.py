@@ -1,4 +1,4 @@
-"""Kernel 2's plain version against the Pallas grouped_score_max in interpret
+"""grouped_score_max's plain version against the Pallas grouped_score_max in interpret
 mode, at the shapes of test_grouped_topk_kernel.py: f32 and bf16 corpora, ip
 and l2 (rtol 1e-5, atol 1e-4: the same f32 dot products summed in another
 order; bf16 queries are rounded the same way on both sides)."""

@@ -48,6 +48,12 @@ def _forbidden(module):
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_sources()
     assert len(files) > 30
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    for module in ("losses/match.py", "train/optimizers.py",
+                   "train/trainer.py", "train/callbacks.py",
+                   "train/checkpoint.py", "cli/train.py",
+                   "ops/cuda/table_update.py", "ops/cuda/sparse_apply.py"):
+        assert os.path.join("recommendflow_tpu_torch", module) in rel, module
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
@@ -89,6 +95,59 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         pred_cli.main([tp.DEMO_CONF, "--data", str(tmp_path / "*.rfb"),
                        "--out", str(tmp_path / "o.npz")])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_trainer_and_train_cli_raise_without_a_card(monkeypatch):
+    _no_card(monkeypatch)
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.models.matching.dssm import Dssm
+    from recommendflow_tpu_torch.train.trainer import Trainer
+    model = Dssm(Configuration(tp.DEMO_CONF), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model)
+    assert Trainer(model, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kernel", ["scatter_add_rows",
+                                    "rowwise_adagrad_update",
+                                    "sparse_adagrad_apply"])
+def test_table_kernels_never_take_the_plain_version_off_the_cpu(monkeypatch,
+                                                                kernel):
+    """A meta tensor (this machine has no CUDA) goes down the launch path,
+    whose checks refuse it; the plain version is never called, and a CPU
+    call of the wrapper counts no launch."""
+    from recommendflow_tpu_torch.ops.cuda import (embedding_bag, sparse_apply,
+                                                  table_update)
+    module = {"scatter_add_rows": embedding_bag,
+              "rowwise_adagrad_update": table_update,
+              "sparse_adagrad_apply": sparse_apply}[kernel]
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with a non-CPU tensor")
+
+    monkeypatch.setattr(module, f"{kernel}_plain", boom)
+
+    def args(device):
+        p = torch.zeros((8, 16), device=device)
+        acc = torch.ones((8, 1), device=device)
+        ids = torch.tensor([1, 5], dtype=torch.int32, device=device)
+        g = torch.ones((2, 16), device=device)
+        if kernel == "scatter_add_rows":
+            return (ids, g, p), {}
+        if kernel == "rowwise_adagrad_update":
+            return (p, acc, torch.ones_like(p)), {"lr": 0.1}
+        return (p, acc, ids, g), {"lr": 0.1}
+
+    wrapper = getattr(module, kernel)
+    a, kw = args("meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wrapper(*a, **kw)
+    monkeypatch.undo()
+    before = wrapper.launches
+    a, kw = args("cpu")
+    wrapper(*a, **kw)
+    assert wrapper.launches == before
+    assert float(a[2 if kernel == "scatter_add_rows" else 0].abs().sum()) > 0
 
 
 @pytest.mark.parametrize("kernel", ["gather_rows", "grouped_score_max"])
