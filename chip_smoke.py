@@ -25,7 +25,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             bitwise;
   6. sparse_adagrad_apply   the same step from the compacted f32 sums: the
                             same tolerances;
-  7. slice                  Dssm at the full width of conf/bench_recall.yaml
+  7. flash_attention        against its plain version, f32 and bf16: at the
+                            encoder's shape [256, 12, 64, 64] (q, k, v the
+                            strided split_heads views of [B, L, H*D], key
+                            masks from the token lengths of 256 texts), and
+                            at Lq = 77, Lk = 200 for D in {8, 16, 32, 64,
+                            128} with a batch row whose keys are all masked,
+                            and at Lq = 130, Lk = 33; f32 within 1e-5
+                            absolute (exps and sums in another order), bf16
+                            within 2^-6 * max|v| (p rounded to bf16 before
+                            P.V, <= 2^-8 relative each, plus both outputs'
+                            final rounding, <= 2^-8 of |out| <= max|v| each);
+  8. slice                  Dssm at the full width of conf/bench_recall.yaml
                             (random weights from a seed): predict 1,048,576
                             synthetic rows at batch 1024, build the eval
                             corpus, search 4096 user vectors with
@@ -34,7 +45,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             (scores within 1e-5, indices equal except among
                             scores within 1e-5); gather_rows and
                             grouped_score_max must have launched;
-  8. train                  Trainer.fit on the same model (the config's
+  9. train                  Trainer.fit on the same model (the config's
                             dropout, batches of 1024): split path with
                             strategy "dense", then "sparse_set", then
                             table_update="dense", ending with the recall
@@ -45,16 +56,47 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             (both under torch's deterministic algorithms, so
                             the duplicate sums add in one order: p bitwise,
                             acc within rtol 1e-6, untouched rows bitwise);
-  9. cli                    cli/evaluate and cli/predict on a few thousand
+ 10. encode                 BERT-Base (google-research/bert's bert_config.json,
+                            vocab 21,128 as the Chinese release) written as
+                            random HF-named pytorch_model.bin, bert_config.json
+                            and a generated vocab.txt, loaded by
+                            TextEncoderService.from_pretrained (max_len 64,
+                            batch 256, pooling cls, whitening, f32 with
+                            allow_tf32 off); encode 16,384 generated texts
+                            (5-64 tokens, some truncated): vectors finite and
+                            unit-norm, the cache returns the same rows,
+                            flash_attention launched 12 x the batches; the
+                            model's vectors of 8 texts on the card against
+                            the same files loaded on the CPU (the port's
+                            plain path) within 1e-4 absolute (f32 sums of up
+                            to 3072 terms in another order through 12
+                            layers, vectors of LayerNorm scale ~1);
+ 11. serve                  EncodeServer + make_server on 127.0.0.1:0 with
+                            that service: /health, concurrent and single
+                            /encode requests of new texts through
+                            RemoteEncoderClient (no local fallback), encoded
+                            on the card (flash_attention launched); the
+                            served vectors bitwise equal to a direct encode
+                            of the same texts by the service (the JSON round
+                            trip of f32 is exact, and each request gets its
+                            own rows);
+ 12. cli                    cli/evaluate and cli/predict on a few thousand
                             conf/demo_recall.yaml records written by the
                             port, the second with weights carried through an
                             interop .npz; then cli/train --train_mode test
                             and cli/predict on the checkpoint it saved;
- 10. times                  median of >= 20 CUDA-event timings of each kernel,
+                            cli/encode at its own widths (--model_dim 256
+                            --num_layers 4 --whitening) with --weights saved
+                            by TextEncoderService.save: equal to that
+                            service's encode within 1e-6 (the same batches;
+                            the whitening read back from its file);
+ 13. times                  median of >= 20 CUDA-event timings of each kernel,
                             its plain version and one PyTorch library call
                             where one computes the same function, at the
-                            phase 2-6 shapes, beside the least time the card
-                            could take.
+                            phase 2-7 shapes, beside the least time the card
+                            could take; encode ms per batch of 256, texts/s
+                            and the device's idle share (torch.profiler),
+                            and /encode request latency.
 
 Then the kernels' JSON line, the card's name and power limit, and the last
 line {"ok": true, "device": {...}}. With no CUDA device it exits non-zero and
@@ -76,9 +118,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_CONF = os.path.join(ROOT, "conf", "bench_recall.yaml")
 DEMO_CONF = os.path.join(ROOT, "conf", "demo_recall.yaml")
 PHASES = ("build", "gather_rows", "grouped_score_max", "scatter_add_rows",
-          "rowwise_adagrad_update", "sparse_adagrad_apply", "slice", "train",
-          "cli", "times")
-KERNEL_PHASES = PHASES[1:6]
+          "rowwise_adagrad_update", "sparse_adagrad_apply", "flash_attention",
+          "slice", "train", "encode", "serve", "cli", "times")
+TABLE_PHASES = ("scatter_add_rows", "rowwise_adagrad_update",
+                "sparse_adagrad_apply")
+ENCODER_PHASES = ("flash_attention", "encode", "serve", "cli", "times")
 
 # published peaks (NVIDIA data sheets, dense, at the full power limit):
 # memory bytes/s and FP32 flop/s outside the tensor cores
@@ -101,11 +145,18 @@ KERNEL_META = {
     "sparse_adagrad_apply": dict(
         route="cuda", source="recommendflow_tpu_torch/csrc/sparse_apply.cu",
         replaces="recommendflow_tpu/ops/pallas/sparse_apply.py:92"),
+    "flash_attention": dict(
+        route="cuda", source="recommendflow_tpu_torch/csrc/flash_attention.cu",
+        replaces="recommendflow_tpu/ops/pallas/flash_attention.py:73"),
 }
 # the path each kernel's launches are counted on
 KERNEL_PATH = {"gather_rows": "slice", "grouped_score_max": "slice",
                "scatter_add_rows": "train", "rowwise_adagrad_update": "train",
-               "sparse_adagrad_apply": "train"}
+               "sparse_adagrad_apply": "train", "flash_attention": "encode"}
+FA_F32_TOL = 1e-5
+FA_BF16_TOL = 2.0 ** -6        # times max|v|
+ENCODE_CPU_TOL = 1e-4
+CLI_TOL = 1e-6
 LR = 0.03   # the table learning rate of the bench config (default_table_lr)
 
 
@@ -226,6 +277,10 @@ def main(argv=None) -> int:
     from recommendflow_tpu_torch.ops.cuda import grouped_topk as k_scan
     from recommendflow_tpu_torch.ops.cuda import sparse_apply as k_sparse
     from recommendflow_tpu_torch.ops.cuda import table_update as k_dense
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k_fa
+    from recommendflow_tpu_torch.ops.attention import split_heads
+    from recommendflow_tpu_torch.encoder import TextEncoderService, Tokenizer
+    from recommendflow_tpu_torch.encoder import synthetic as enc_syn
     from recommendflow_tpu_torch.ops.embedding import fused_group_ids
     from recommendflow_tpu_torch.retrieval.eval import (
         batch_compute_recall_score, build_eval_corpus)
@@ -238,6 +293,14 @@ def main(argv=None) -> int:
              search_q=4096, cli_rows=4000, reps=20) if not rehearse else \
         dict(batch=64, n_batches=8, q=64, n_pad=1 << 13, d=128, search_q=64,
              cli_rows=400, reps=2)
+    # the encoder path: BERT-Base on the card, a two-layer toy of it here
+    E = dict(config=enc_syn.BERT_BASE, texts=16384, batch=256, serve_clients=8,
+             serve_texts=32, latency_reps=10, cli_texts=2048) if not rehearse \
+        else dict(config=dict(enc_syn.BERT_BASE, hidden_size=64,
+                              num_hidden_layers=2, num_attention_heads=4,
+                              intermediate_size=128),
+                  texts=512, batch=64, serve_clients=4, serve_texts=8,
+                  latency_reps=2, cli_texts=128)
     sync = torch.cuda.synchronize if not rehearse else (lambda: None)
     card = nvidia_smi() if not rehearse else "cpu rehearsal"
     kind = torch.cuda.get_device_name(0) if not rehearse else "cpu"
@@ -332,7 +395,7 @@ def main(argv=None) -> int:
             num_items=num_items, max_abs_err=by_variant, tolerance=1e-4)
 
     upd = None
-    if any(p in phases for p in KERNEL_PHASES[2:]) or "times" in phases:
+    if any(p in phases for p in TABLE_PHASES) or "times" in phases:
         upd = update_inputs(10_001)
         acc0 = torch.rand((R, 1), generator=gen, device=dev) + 0.1
         u, sm, nv, touched = (upd["uid"], upd["summed"], upd["n_valid"],
@@ -371,12 +434,80 @@ def main(argv=None) -> int:
         log("sparse_adagrad_apply", **err)
         del p_k, a_k, p_r, a_r
 
-    # ----------------------------------------------------------- 7. slice
+    # ----------------------------------------- encoder inputs (7, 10-13)
+    cfg = E["config"]
+    heads, layers = cfg["num_attention_heads"], cfg["num_hidden_layers"]
+    head_dim = cfg["hidden_size"] // heads
+    enc_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_bert_")
+    bert_files = None
+    texts = tokenizer = fa_mask = None
+    if any(p in phases for p in ENCODER_PHASES):
+        vocab = enc_syn.make_vocab(cfg["vocab_size"], seed=0)
+        tokenizer = Tokenizer({t: i for i, t in enumerate(vocab)})
+        texts = enc_syn.make_texts(E["texts"], seed=0)
+        # the key mask of one batch: [256, 64] from the texts' token counts
+        fa_mask = torch.from_numpy(
+            tokenizer.encode_batch(texts[:E["batch"]], 64)[0] > 0).to(dev)
+
+    def path_qkv(dtype):
+        """q, k, v at the encoder's attention shape, as split_heads hands
+        them over: [B, H, L, D] views of [B, L, H*D] projections."""
+        return [split_heads(torch.randn(
+            (E["batch"], 64, heads * head_dim), generator=gen, device=dev
+        ).to(dtype), heads) for _ in range(3)]
+
+    if "flash_attention" in phases:
+        cases = []
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append(("path", *path_qkv(dtype), fa_mask))
+            for b, lq, lk, d in [(3, 77, 200, 8), (3, 77, 200, 16),
+                                 (3, 77, 200, 32), (3, 77, 200, 64),
+                                 (3, 77, 200, 128), (2, 130, 33, 64)]:
+                qkv = [torch.randn((b, 2, n, d), generator=gen, device=dev
+                                   ).to(dtype) for n in (lq, lk, lk)]
+                m = torch.rand((b, lk), generator=gen, device=dev) < 0.7
+                m[:, 1] = True
+                m[0] = False                  # a row with every key masked
+                cases.append((f"b{b}_lq{lq}_lk{lk}_d{d}", *qkv, m))
+        by_case = {}
+        for name, q_, k_, v_, m_ in cases:
+            got = k_fa.flash_attention(q_, k_, v_, m_)
+            ref = k_fa.flash_attention_plain(q_, k_, v_, m_)
+            sync()
+            require(got.shape == q_.shape and got.dtype == q_.dtype,
+                    f"flash_attention {name}: {got.dtype} {tuple(got.shape)}")
+            err = float((got.float() - ref.float()).abs().max())
+            tol = FA_F32_TOL if q_.dtype == torch.float32 else \
+                FA_BF16_TOL * float(v_.float().abs().max())
+            key = f"{str(q_.dtype).split('.')[-1]}/{name}"
+            by_case[key] = {"max_abs_err": err, "tolerance": tol}
+            require(err <= tol, f"flash_attention {key}: max abs diff {err} "
+                    f"> {tol}")
+        del cases, got, ref
+        errs["flash_attention"] = max(c["max_abs_err"] for k, c in
+                                      by_case.items() if k.startswith("float32"))
+        log("flash_attention", path_shape=[E["batch"], heads, 64, head_dim],
+            path_valid_keys=int(fa_mask.sum()), cases=by_case)
+
+    svc = None
+
+    def encoder_service():
+        """The encode path's service: BERT-Base from the written files."""
+        nonlocal svc, bert_files
+        if svc is None:
+            bert_files = enc_syn.write_bert_files(enc_tmp.name, cfg, seed=0)
+            svc = TextEncoderService.from_pretrained(
+                *bert_files, max_len=64, batch_size=E["batch"],
+                use_whitening=True, device=dev)
+        return svc
+
+    # ----------------------------------------------------------- 8. slice
     counters = {"gather_rows": k_rows.gather_rows,
                 "grouped_score_max": k_scan.grouped_score_max,
                 "scatter_add_rows": k_rows.scatter_add_rows,
                 "rowwise_adagrad_update": k_dense.rowwise_adagrad_update,
-                "sparse_adagrad_apply": k_sparse.sparse_adagrad_apply}
+                "sparse_adagrad_apply": k_sparse.sparse_adagrad_apply,
+                "flash_attention": k_fa.flash_attention}
 
     def reset_counts():
         for fn in counters.values():
@@ -385,7 +516,7 @@ def main(argv=None) -> int:
     def read_counts():
         return {name: fn.launches for name, fn in counters.items()}
 
-    launches = {"slice": {}, "train": {}}
+    launches = {"slice": {}, "train": {}, "encode": {}}
     model = None
     if "slice" in phases or "train" in phases:
         model, _ = build_network(bench_conf.networks["class"],
@@ -464,7 +595,7 @@ def main(argv=None) -> int:
         if not rehearse:
             torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 8. train
+    # ----------------------------------------------------------- 9. train
     if "train" in phases:
         from recommendflow_tpu_torch.retrieval.eval import make_recall_evaluator
         from recommendflow_tpu_torch.train.callbacks import EvalCallback
@@ -508,7 +639,10 @@ def main(argv=None) -> int:
         launches["train"] = read_counts()
         recall = {k: v for k, v in logs.items() if k.startswith("val_")}
         require(all(math.isfinite(x) for x in losses), f"losses {losses}")
-        require(all(v > 0 for v in launches["train"].values()) or rehearse,
+        # the training path runs the table kernels, gather_rows and, in
+        # the recall evaluation, grouped_score_max; not the encoder's
+        require(all(v > 0 for k, v in launches["train"].items()
+                    if k != "flash_attention") or rehearse,
                 f"a kernel was not launched on the training path: "
                 f"{launches['train']}")
         require(bool(recall) and all(math.isfinite(v) for v in recall.values()),
@@ -567,7 +701,145 @@ def main(argv=None) -> int:
     if not rehearse:
         torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------- 9. cli
+    # --------------------------------------------------------- 10. encode
+    if "encode" in phases:
+        t0 = time.perf_counter()
+        service = encoder_service()
+        load_s = time.perf_counter() - t0
+        service.warmup()
+        if not rehearse:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        emb = service.encode(texts)
+        sync()
+        encode_s = time.perf_counter() - t0
+        launches["encode"] = read_counts()
+        n_batches = -(-len(texts) // E["batch"])
+        require(launches["encode"]["flash_attention"] == layers * n_batches
+                or rehearse, f"flash_attention launched "
+                f"{launches['encode']['flash_attention']} times on the encode "
+                f"path, not {layers} x {n_batches} batches")
+        require(emb.shape == (len(texts), cfg["hidden_size"]),
+                f"encode shape {emb.shape}")
+        require(bool(np.isfinite(emb).all()), "non-finite text vectors")
+        norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1.0).max())
+        require(norm_err <= 1e-4, f"text vectors not unit ({norm_err})")
+        again = service.encode(texts[:1000])
+        cache_equal = bool(np.array_equal(again, emb[:1000]))
+        require(cache_equal, "the cache returned other rows")
+        # the model's vectors on the card against the CPU's plain path
+        few = texts[:8]
+        cpu_svc = TextEncoderService.from_pretrained(
+            *bert_files, max_len=64, batch_size=len(few), device="cpu")
+        cpu_err = float(np.abs(service._encode_raw(few)
+                               - cpu_svc._encode_raw(few)).max())
+        del cpu_svc
+        require(cpu_err <= ENCODE_CPU_TOL, f"encode on the card vs the CPU: "
+                f"{cpu_err} > {ENCODE_CPU_TOL}")
+        tok_counts = (tokenizer.encode_batch(texts, 64)[0] > 0).sum(1)
+        log("encode", config={k: cfg[k] for k in (
+                "vocab_size", "hidden_size", "num_hidden_layers",
+                "num_attention_heads", "intermediate_size")},
+            texts=len(texts), batch=E["batch"], batches=n_batches,
+            tokens={"min": int(tok_counts.min()),
+                    "median": float(np.median(tok_counts)),
+                    "max": int(tok_counts.max()),
+                    "truncated_share": float((tok_counts == 64).mean())},
+            load_s=load_s, encode_s=encode_s,
+            ms_per_batch_with_fit=encode_s / n_batches * 1e3,
+            launches=launches["encode"], unit_norm_err=norm_err,
+            cache_equal=cache_equal, cpu_vs_card=cpu_err,
+            cpu_tolerance=ENCODE_CPU_TOL,
+            peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if not rehearse else None))
+        del emb, again
+
+    # ---------------------------------------------------------- 11. serve
+    serve_latency = None
+    if "serve" in phases:
+        import threading
+        import urllib.request
+        from recommendflow_tpu_torch.serving import (EncodeServer,
+                                                     RemoteEncoderClient,
+                                                     make_server)
+        service = encoder_service()
+        backend = EncodeServer(service, max_batch=4096, batch_window_ms=4.0)
+        httpd = make_server(backend, host="127.0.0.1", port=0)
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            client = RemoteEncoderClient(url, local=None, request_timeout=120)
+            require(client.ping(), "/health did not answer ok")
+            with urllib.request.urlopen(url + "/health", timeout=60) as r:
+                health = json.loads(r.read())
+            require(health["device"] == str(dev) and (
+                rehearse or health["card"] == kind), f"/health {health}")
+            fresh = [t for t in enc_syn.make_texts(
+                E["serve_clients"] * 2 * E["serve_texts"]
+                + 2 * E["latency_reps"], seed=2) if t not in service._cache]
+            n_conc = E["serve_clients"] * 2 * E["serve_texts"]
+            conc, single = fresh[:n_conc], fresh[n_conc:]
+            results, failures = {}, []
+
+            def serve_client(c):
+                for r in range(2):
+                    at = (c * 2 + r) * E["serve_texts"]
+                    try:
+                        results[at] = client.encode(
+                            conc[at:at + E["serve_texts"]])
+                    except Exception as e:  # noqa: BLE001 — reported below
+                        failures.append(repr(e))
+
+            batches_before = backend._batcher.batches_run
+            reset_counts()
+            threads = [threading.Thread(target=serve_client, args=(c,))
+                       for c in range(E["serve_clients"])]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            conc_s = time.perf_counter() - t0
+            require(not failures, f"/encode requests failed: {failures[:3]}")
+            conc_batches = backend._batcher.batches_run - batches_before
+            lat_one, lat_batch = [], []
+            for i in range(E["latency_reps"]):
+                t0 = time.perf_counter()
+                results[n_conc + i] = client.encode([single[i]])
+                lat_one.append((time.perf_counter() - t0) * 1e3)
+            block = single[E["latency_reps"]:]
+            t0 = time.perf_counter()
+            results[n_conc + E["latency_reps"]] = client.encode(block)
+            lat_batch.append((time.perf_counter() - t0) * 1e3)
+            serve_launches = read_counts()["flash_attention"]
+            require(serve_launches > 0 or rehearse,
+                    "the served texts were not encoded on the card")
+            served = np.concatenate([results[k] for k in sorted(results)])
+            direct = service.encode(conc + single)
+            serve_err = float(np.abs(served - direct).max())
+            require(served.dtype == np.float32 and
+                    bool(np.array_equal(served, direct)),
+                    f"served vectors differ from a direct encode: {serve_err}")
+            serve_latency = {"one_text_ms_median": sorted(lat_one)[len(lat_one) // 2],
+                             "one_text_ms": lat_one,
+                             f"{len(block)}_texts_ms": lat_batch[0]}
+            with urllib.request.urlopen(url + "/health", timeout=60) as r:
+                health = json.loads(r.read())
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            backend.close()
+            server.join(timeout=10)
+        log("serve", health=health, concurrent_requests=2 * E["serve_clients"],
+            texts_per_request=E["serve_texts"], concurrent_s=conc_s,
+            concurrent_encode_calls=conc_batches,
+            flash_attention_launches=serve_launches,
+            served_vs_direct=serve_err, latency=serve_latency)
+
+    # ------------------------------------------------------------ 12. cli
     if "cli" in phases:
         from recommendflow_tpu_torch.cli import evaluate as eval_cli
         from recommendflow_tpu_torch.cli import predict as pred_cli
@@ -618,12 +890,39 @@ def main(argv=None) -> int:
             require(diff2 <= 1e-5, f"predict CLI on the trained checkpoint vs "
                     f"the model: {diff2}")
             del model
+            # cli/encode at its own widths, weights saved by the service
+            from recommendflow_tpu_torch.cli import encode as encode_cli
+            vocab_path = os.path.join(tmp, "vocab.txt")
+            with open(vocab_path, "w") as f:
+                f.write("\n".join(vocab) + "\n")
+            widths = ["--model_dim", "256", "--num_layers", "4"]
+            enc_svc = TextEncoderService(Tokenizer(vocab_path), max_len=64,
+                                         use_whitening=True, model_dim=256,
+                                         num_layers=4, device=dev, seed=1)
+            cli_texts = texts[:E["cli_texts"]]
+            enc_ref = enc_svc.encode(cli_texts)
+            enc_svc.save(os.path.join(tmp, "encoder"))
+            with open(os.path.join(tmp, "texts.txt"), "w") as f:
+                f.write("\n".join(cli_texts) + "\n")
+            enc_out = encode_cli.main([
+                "--vocab", vocab_path, "--input", os.path.join(tmp, "texts.txt"),
+                "--out", os.path.join(tmp, "emb.npz"), "--weights",
+                os.path.join(tmp, "encoder"), "--whitening", "--device",
+                str(dev), *widths])
+            require(enc_out.shape == (len(cli_texts), 256) and
+                    bool(np.isfinite(enc_out).all()),
+                    f"encode CLI output {enc_out.shape}")
+            enc_diff = float(np.abs(enc_out - enc_ref).max())
+            require(enc_diff <= CLI_TOL, f"encode CLI vs its service: "
+                    f"{enc_diff}")
+            del enc_svc
         log("cli", rows=n, evaluate_metrics=metrics, predict_vs_model=diff,
             train_cli={k: v for k, v in hist.items()
                        if k in ("loss", "examples_per_sec", "val_hit@5")},
-            trained_predict_vs_model=diff2)
+            trained_predict_vs_model=diff2, encode_cli_texts=len(cli_texts),
+            encode_cli_vs_service=enc_diff)
 
-    # ---------------------------------------------------------- 10. times
+    # ---------------------------------------------------------- 13. times
     kernels = []
     if "times" in phases and not rehearse:
         timer = Timer(torch, S["reps"])
@@ -695,19 +994,56 @@ def main(argv=None) -> int:
                 p_t, a_t, u, sm, nv, lr=LR)),
             None,
             n_u * (4 + W * 4 + 2 * W * 2 + 2 * 4) + 4)
+        # flash_attention at the encoder's shape, f32, a batch's key mask
+        qp, kp, vp = path_qkv(torch.float32)
+        nb, nl = E["batch"], 64
+        add("flash_attention",
+            timer.median_ms(lambda i: k_fa.launch_flash_attention(
+                qp, kp, vp, fa_mask)),
+            timer.median_ms(lambda i: k_fa.flash_attention_plain(
+                qp, kp, vp, fa_mask)),
+            timer.median_ms(lambda i: torch.nn.functional
+                            .scaled_dot_product_attention(
+                                qp, kp, vp, attn_mask=fa_mask[:, None, None, :])),
+            4 * (4 * nb * heads * nl * head_dim) + nb * nl,
+            ops=4.0 * nb * heads * nl * nl * head_dim)
+        del qp, kp, vp
+        # the encode path: steady wall time, then a profiled window
+        from recommendflow_tpu_torch.tools.profile_slice import profile_encode
+        service = encoder_service()
+        chunk = texts[:16 * E["batch"]]
+        service._encode_raw(chunk[:E["batch"]])
+        sync()
+        t0 = time.perf_counter()
+        service._encode_raw(chunk)
+        sync()
+        enc_wall = time.perf_counter() - t0
+        enc_prof = profile_encode(service, texts, batches=8)
+        encode_times = {
+            "ms_per_batch": enc_wall / 16 * 1e3,
+            "texts_per_s": len(chunk) / enc_wall,
+            "profiled": {k: enc_prof[k] for k in (
+                "per_batch_wall_ms", "per_batch_device_ms", "idle_share",
+                "texts_per_s", "top_ms", "port_kernels")}}
         zero_ms = timer.median_ms(lambda i: gd.zero_())
         log("times", card=card, peaks={"bytes_per_s": bw, "fp32_flops": flops},
             shapes={"gather_rows": {"ids": n_ids, "unique_rows": uniq},
                     "grouped_score_max": {"q": nq, "n_pad": n_pad, "d": d},
+                    "flash_attention": [E["batch"], heads, 64, head_dim],
                     "table": [R, W], "update_ids": upd["n_ids"],
                     "unique_stored_rows": n_u, "touched_stored_rows": n_t},
             work=row, zero_fill_ms=zero_ms,
             zero_fill_bound_ms=R * W * 2 / bw * 1e3,
             full_table_pass_bound_ms=(3 * R * W * 2 + 2 * R * 4) / bw * 1e3,
             library_ms_note={"rowwise_adagrad_update": "no single PyTorch call",
-                             "sparse_adagrad_apply": "no single PyTorch call"},
+                             "sparse_adagrad_apply": "no single PyTorch call",
+                             "flash_attention": "scaled_dot_product_attention "
+                             "with the boolean key mask"},
+            encode=encode_times, serve_latency=serve_latency,
             reps=S["reps"])
 
+    svc = None
+    enc_tmp.cleanup()
     if rehearse:
         print("chip_smoke: CPU rehearsal done (no result without a card)")
         return 3

@@ -295,11 +295,9 @@ def compile_schema(features: Features) -> BatchSchema:
 
 @lru_cache(maxsize=16)
 def get_tokenizer(vocab_path: str):
-    """Shared tokenizer per vocab file (bert_encode deal host tokenization).
-    The tokenizer arrives with the text-encoder stack."""
-    raise NotImplementedError(
-        f"bert_encode features need the text-encoder stack, which "
-        f"recommendflow_tpu_torch does not have yet (vocab {vocab_path})")
+    """Shared tokenizer per vocab file (bert_encode deal host tokenization)."""
+    from recommendflow_tpu_torch.encoder.tokenizer import Tokenizer
+    return Tokenizer(vocab_path)
 
 
 # ----------------------------------------------------------- host encoders

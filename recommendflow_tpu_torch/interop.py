@@ -9,6 +9,15 @@ The flax tree (as host numpy) maps onto a model's state dict one to one:
   batch_stats/<m>/BatchNorm_i/{mean, var}
                                         -> <m>.BatchNorm_i.{running_mean, running_var}
 
+and, for the text encoder (`ops/transformer.py:TextEncoder`), Dense layers
+named after their role and LayerNorm and Embed modules:
+
+  params/.../mha/{q,k,v,out}/kernel     -> ....mha.{q,k,v,out}.weight (transposed)
+  params/.../{emb_ln,ln1,ln2}/{scale, bias}
+                                        -> ....{emb_ln,ln1,ln2}.{weight, bias}
+  params/{tok_emb,seg_emb}/embedding    -> {tok_emb,seg_emb}.weight
+  params/pos_emb                        -> pos_emb (a bare parameter, as is)
+
 bf16 leaves arrive as `ml_dtypes.bfloat16` arrays, or as 2-byte void arrays
 when read back from an .npz without ml_dtypes installed; both move through a
 uint16 view, never through float32, so the bits are kept.
@@ -34,7 +43,7 @@ and the dense leaves' Adam moments):
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +51,8 @@ import torch
 Tree = Dict[str, Any]
 
 _DENSE = {"kernel": "weight", "bias": "bias"}
+_LAYER_NORM = {"scale": "weight", "bias": "bias"}
+_EMBED = {"embedding": "weight"}
 _BN_PARAMS = {"scale": "weight", "bias": "bias"}
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -91,15 +102,27 @@ def unflatten(flat: Mapping[Tuple[str, ...], Any]) -> Tree:
     return tree
 
 
+def _leaf_names(owner: str) -> Optional[Dict[str, str]]:
+    """flax leaf name -> torch name in the params of a module named `owner`
+    (BatchNorm aside); None where the names are the same."""
+    if owner.startswith("Dense") or owner in ("q", "k", "v", "out"):
+        return _DENSE
+    if owner.startswith("LayerNorm") or owner in ("emb_ln", "ln1", "ln2"):
+        return _LAYER_NORM
+    if owner.startswith("Embed") or owner in ("tok_emb", "seg_emb"):
+        return _EMBED
+    return None
+
+
 def _torch_key(path: Tuple[str, ...]) -> str:
     collection, *mods, leaf = path
     owner = mods[-1] if mods else ""
-    if owner.startswith("Dense") and collection == "params":
-        leaf = _DENSE[leaf]
-    elif owner.startswith("BatchNorm"):
+    if owner.startswith("BatchNorm"):
         leaf = (_BN_PARAMS if collection == "params" else _BN_STATS)[leaf]
     elif collection != "params":
         raise KeyError(f"no state-dict counterpart for {'/'.join(path)}")
+    else:
+        leaf = (_leaf_names(owner) or {}).get(leaf, leaf)
     return ".".join(mods + [leaf])
 
 
@@ -120,23 +143,21 @@ def jax_from_variables(state: Mapping[str, torch.Tensor],
     """The reverse of variables_from_jax: state dict -> flax variable tree
     of numpy arrays. `bf16_dtype` as in to_numpy."""
     flat: Dict[Tuple[str, ...], np.ndarray] = {}
-    inv_dense = {v: k for k, v in _DENSE.items()}
     inv_bn = {v: ("params", k) for k, v in _BN_PARAMS.items()}
     inv_bn.update({v: ("batch_stats", k) for k, v in _BN_STATS.items()})
     for key, t in state.items():
         *mods, leaf = key.split(".")
         owner = mods[-1] if mods else ""
         arr = to_numpy(t, bf16_dtype)
-        if owner.startswith("Dense"):
-            name = inv_dense[leaf]
-            if name == "kernel":
-                arr = np.ascontiguousarray(arr.T)
-            flat[("params", *mods, name)] = arr
-        elif owner.startswith("BatchNorm"):
+        if owner.startswith("BatchNorm"):
             collection, name = inv_bn[leaf]
             flat[(collection, *mods, name)] = arr
-        else:
-            flat[("params", *mods, leaf)] = arr
+            continue
+        names = _leaf_names(owner) or {}
+        name = {v: k for k, v in names.items()}.get(leaf, leaf)
+        if name == "kernel":
+            arr = np.ascontiguousarray(arr.T)
+        flat[("params", *mods, name)] = arr
     return unflatten(flat)
 
 

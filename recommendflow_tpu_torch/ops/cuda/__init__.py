@@ -6,4 +6,5 @@ built or loaded when a module is imported.
 """
 
 # csrc/<name>.cu, one shared library each
-KERNELS = ("embedding_bag", "grouped_topk", "table_update", "sparse_apply")
+KERNELS = ("embedding_bag", "grouped_topk", "table_update", "sparse_apply",
+           "flash_attention")

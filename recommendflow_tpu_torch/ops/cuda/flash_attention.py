@@ -1,0 +1,113 @@
+"""`flash_attention`: softmax attention over [B, H, L, D] with an optional
+[B, Lk] key mask (True = valid), forward only.
+
+Replaces `recommendflow_tpu/ops/pallas/flash_attention.py:flash_attention`
+and computes the function of the vanilla SDPA the JAX `TextEncoder` runs
+(`recommendflow_tpu/ops/attention.py:53-59`): masked scores at -1e9, so a
+query row whose keys are all masked averages v over the Lk real keys (the
+Pallas kernel pads Lk to its block and averages over the padding too). The
+CUDA source, its bound and its design are in `csrc/flash_attention.cu`.
+
+`flash_attention` takes the plain version for CPU tensors only; for CUDA
+tensors it launches the kernel or raises. `flash_attention.launches` counts
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from recommendflow_tpu_torch.ops.cuda import _build
+
+_NAME = "flash_attention"
+NEG_INF = -1e9          # the vanilla path's masked-score fill
+MAX_HEAD_DIM = 128
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version: the [B, H, Lq, Lk] scores in f32, masked
+    to -1e9, softmax, times v, in q's dtype."""
+    b, _, _, d = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+    if mask is not None:
+        s = s.masked_fill(~mask.reshape(b, 1, 1, -1), NEG_INF)
+    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(_NAME)
+    if not getattr(lib, "_typed", False):
+        lib.rf_flash_attention.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.rf_flash_attention.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the CUDA kernel. Raises on anything it does not take. The
+    output is a [B, H, Lq, D] view of a contiguous [B, Lq, H, D] buffer,
+    which `merge_heads` reads without a copy."""
+    dev = q.device
+    tensors = [q, k, v] + ([mask] if mask is not None else [])
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("flash_attention kernel needs CUDA tensors on one "
+                         f"device (got {[str(t.device) for t in tensors]})")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: q, k and v "
+                         f"must all be float32 or all bfloat16")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} are not [B, H, Lq, D] and "
+                         f"[B, H, Lk, D] twice")
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if not 1 <= d <= MAX_HEAD_DIM or lk < 1:
+        raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}] or no keys")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v need a contiguous last dim")
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.numel() != b * lk:
+            raise ValueError(f"mask {mask.dtype} {tuple(mask.shape)} is not a "
+                             f"bool [B, Lk] = [{b}, {lk}] key mask")
+        mask = mask.reshape(b, lk)
+        if mask.stride(-1) != 1:
+            raise ValueError("the key mask needs a contiguous last dim")
+    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_int64 * 13)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        mask.stride(0) if mask is not None else 0)
+    lib = _lib()
+    rc = lib.rf_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        _DTYPES[q.dtype], ctypes.cast(strides, ctypes.c_void_p), b, h, lq, lk,
+        d, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(q [B, H, Lq, D], k and v [B, H, Lk, D], mask [B, Lk] bool or None)
+    -> [B, H, Lq, D] in q's dtype, f32 accumulation."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_attention_plain(q, k, v, mask)
+    return launch_flash_attention(q, k, v, mask)
+
+
+flash_attention.launches = 0

@@ -1,7 +1,8 @@
-"""Where the time of the serving and training slices goes, on one card.
+"""Where the time of the serving, training and encoder slices goes, on one
+card.
 
     python -m recommendflow_tpu_torch.tools.profile_slice [--batches 64]
-        [--train_steps 10]
+        [--train_steps 10] [--encode_batches 16]
 
 At the full width of conf/bench_recall.yaml (random weights from a seed):
 
@@ -15,7 +16,12 @@ At the full width of conf/bench_recall.yaml (random weights from a seed):
     split path with strategy "dense", with "sparse_set", and for
     table_update="dense" (the config's dropout), profiled the same way per
     step, with the host's waits on the card in one step counted by CUDA's
-    sync debug mode (file:line of each).
+    sync debug mode (file:line of each);
+  * encode: BERT-Base (random weights from a seed, written as a HuggingFace
+    checkpoint and loaded by TextEncoderService.from_pretrained) encoding
+    batches of 256 synthetic texts at max_len 64 through the service's
+    batch loop (tokenize, copy, forward, copy back), profiled the same way
+    per batch.
 
 The profiler lists only some launches of the port's own kernels (they
 come from a ctypes library with its own CUDA runtime, which the profiler
@@ -120,6 +126,8 @@ class LaunchRecorder:
                                    "rowwise_adagrad_kernel"),
         "sparse_adagrad_apply": ("sparse_apply", "launch_sparse_adagrad_apply",
                                  "sparse_adagrad_kernel"),
+        "flash_attention": ("flash_attention", "launch_flash_attention",
+                            "flash_attention_kernel"),
     }
 
     def __init__(self):
@@ -236,6 +244,60 @@ def profile_training(model, dev, steps: int):
         del on_dev
 
 
+def profile_encode(service, texts, batches: int):
+    """Encode `batches` batches of `texts` through service._encode_raw (the
+    path of TextEncoderService.encode below its cache and whitening) under
+    torch.profiler: wall and device time per batch, idle share, texts per
+    second and device time by kernel. flash_attention's launches the
+    profiler missed count at the kernel's time alone on one recorded
+    batch's operands."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k_fa
+    bs = service.batch_size
+    chunk = list(texts[:batches * bs])
+    service._encode_raw(chunk[:bs])                      # warm-up
+    rec = LaunchRecorder()
+    service._encode_raw(chunk[:bs])                      # record one batch
+    rec.remove()
+    alone = rec.alone_ms()
+    del rec
+    torch.cuda.synchronize()
+    k_fa.flash_attention.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        service._encode_raw(chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    symbol, ms = alone["flash_attention"]
+    stats = _device_stats(prof, wall, {"flash_attention": (
+        symbol, k_fa.flash_attention.launches, ms)})
+    n_batches = -(-len(chunk) // bs)
+    stats.update(batches=n_batches, batch_size=bs,
+                 per_batch_wall_ms=wall / n_batches * 1e3,
+                 per_batch_device_ms=stats["device_busy_ms"] / n_batches,
+                 texts_per_s=len(chunk) / wall,
+                 flash_attention_launches_per_batch=(
+                     k_fa.flash_attention.launches / n_batches))
+    return stats
+
+
+def profile_encoder(dev, batches: int):
+    """One JSON line: profile_encode at BERT-Base width."""
+    import tempfile
+
+    from recommendflow_tpu_torch.encoder import TextEncoderService
+    from recommendflow_tpu_torch.encoder.synthetic import (BERT_BASE,
+                                                           make_texts,
+                                                           write_bert_files)
+    with tempfile.TemporaryDirectory() as tmp:
+        service = TextEncoderService.from_pretrained(
+            *write_bert_files(tmp, BERT_BASE, seed=0), max_len=64, device=dev)
+    stats = profile_encode(service, make_texts(batches * 256, seed=1), batches)
+    print(json.dumps({"part": "encode", **stats}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="profile the serving and "
                                  "training slices")
@@ -243,6 +305,8 @@ def main(argv=None) -> int:
     ap.add_argument("--train_steps", type=int, default=10)
     ap.add_argument("--corpus_batches", type=int, default=1024,
                     help="batches of 1024 predicted for the eval corpus")
+    ap.add_argument("--encode_batches", type=int, default=16,
+                    help="batches of 256 texts encoded at BERT-Base width")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -317,6 +381,9 @@ def main(argv=None) -> int:
     del searcher, out, corpus
     torch.cuda.empty_cache()
     profile_training(model, dev, args.train_steps)
+    del model
+    torch.cuda.empty_cache()
+    profile_encoder(dev, args.encode_batches)
     return 0
 
 

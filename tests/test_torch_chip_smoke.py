@@ -1,7 +1,8 @@
 """chip_smoke.py's contract where there is no card: it exits non-zero and
 prints no result, alone in a directory as well, and its CPU rehearsal drives
 every phase at toy sizes through the plain versions (the serving slice, the
-training run of the three table-update modes, the CLIs)."""
+training run of the three table-update modes, the text encoder's encode and
+HTTP serving, the CLIs)."""
 import json
 import os
 import shutil
@@ -11,6 +12,10 @@ import sys
 import _torch_parity as tp
 
 SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
+# every phase but the build and the timings, which need the card
+REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
+             "rowwise_adagrad_update", "sparse_adagrad_apply",
+             "flash_attention", "slice", "train", "encode", "serve", "cli")
 
 
 def _run(args, cwd):
@@ -41,9 +46,7 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
         if line.startswith('{"phase"'):
             rec = json.loads(line)
             phases[rec["phase"]] = rec
-    assert sorted(phases) == sorted(
-        ["cli", "gather_rows", "grouped_score_max", "scatter_add_rows",
-         "rowwise_adagrad_update", "sparse_adagrad_apply", "slice", "train"])
+    assert sorted(phases) == sorted(REHEARSED)
     assert phases["gather_rows"]["bitwise_equal"] is True
     assert max(phases["grouped_score_max"]["max_abs_err"].values()) <= 1e-4
     assert phases["scatter_add_rows"]["bitwise_equal"] is True
@@ -59,3 +62,16 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
     assert all(k.startswith("val_") for k in train["recall"])
     assert phases["cli"]["predict_vs_model"] <= 1e-5
     assert phases["cli"]["trained_predict_vs_model"] <= 1e-5
+    fa = phases["flash_attention"]["cases"]
+    assert {k.split("/")[0] for k in fa} == {"float32", "bfloat16"}
+    assert any("lk200_d128" in k for k in fa)
+    assert all(c["max_abs_err"] <= c["tolerance"] for c in fa.values())
+    enc = phases["encode"]
+    assert enc["batches"] == 8 and enc["cache_equal"]
+    assert enc["unit_norm_err"] <= 1e-4 and enc["cpu_vs_card"] <= 1e-4
+    assert 0 < enc["tokens"]["truncated_share"] < 0.5
+    serve = phases["serve"]
+    assert serve["health"]["device"] == "cpu"
+    assert serve["served_vs_direct"] == 0.0
+    assert serve["concurrent_encode_calls"] <= serve["concurrent_requests"]
+    assert phases["cli"]["encode_cli_vs_service"] <= 1e-6

@@ -15,6 +15,12 @@ the search and the model
 agree with their CPU runs to 1e-5 and 2e-5. Ulps are measured at the larger
 magnitude of the two values.
 
+flash_attention agrees with its plain version within 1e-5 absolute in f32
+(exps and sums in another order) and within 2^-6 * max|v| in bf16 (p is
+rounded to bf16 before P.V, as the Pallas kernel does, and both outputs
+round once more); the text encoder on the card agrees with its CPU run
+within 2e-5 and launches flash_attention once per layer and batch.
+
 Training steps on the card agree with the same steps on the CPU; the GEMMs
 and the duplicate sums add in another order on each device, so gradients
 differ in their last bits:
@@ -298,3 +304,110 @@ def test_train_steps_card_match_cpu(cuda, mode, strategy, table_dtype, steps):
             assert float(diff.max()) <= 2 * lr * steps, k
         else:
             assert torch.equal(gs[k], cs[k]), k
+
+
+FA_CASES = [  # (batch, heads, Lq, Lk, head dim): the chip_smoke.py shapes
+    (256, 12, 64, 64, 64), (3, 2, 77, 200, 8), (3, 2, 77, 200, 16),
+    (3, 2, 77, 200, 32), (3, 2, 77, 200, 64), (3, 2, 77, 200, 128),
+    (2, 2, 130, 33, 64), (1, 1, 1, 1, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d", FA_CASES)
+def test_flash_attention_kernel(cuda, dtype, b, h, lq, lk, d):
+    from recommendflow_tpu_torch.ops.attention import merge_heads, split_heads
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    g = torch.Generator(device=cuda).manual_seed(lq * 1000 + d)
+    # q, k, v as split_heads hands them over: strided [B, H, L, D] views
+    q, kk, v = (split_heads(torch.randn((b, n, h * d), generator=g,
+                                        device=cuda).to(dtype), h)
+                for n in (lq, lk, lk))
+    mask = torch.rand((b, lk), generator=g, device=cuda) < 0.7
+    mask[:, 0] = True
+    mask[0] = False                                  # every key masked
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6 * float(
+        v.float().abs().max())
+    for m in (mask, None):
+        before = k.flash_attention.launches
+        got = k.flash_attention(q, kk, v, m)
+        ref = k.flash_attention_plain(q, kk, v, m)
+        torch.cuda.synchronize()
+        assert k.flash_attention.launches == before + 1
+        assert got.dtype == dtype and got.shape == (b, h, lq, d)
+        assert float((got.float() - ref.float()).abs().max()) <= tol
+    # the output is the transpose of a contiguous [B, Lq, H, D] buffer
+    merged = merge_heads(got)
+    assert merged.data_ptr() == got.data_ptr() and merged.is_contiguous()
+
+
+def test_flash_attention_all_masked_row_is_the_mean_of_v(cuda):
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, kk, v = (torch.randn((2, 3, n, 32), generator=g, device=cuda)
+                for n in (9, 200, 200))
+    mask = torch.ones((2, 200), dtype=torch.bool, device=cuda)
+    mask[1] = False
+    out = k.flash_attention(q, kk, v, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[1], v[1].mean(dim=1, keepdim=True).expand(
+        3, 9, 32), rtol=0, atol=1e-5)
+
+
+def test_flash_attention_refusals(cuda):
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    q = torch.randn((2, 2, 8, 16), device=cuda)
+    m = torch.ones((2, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.randn((1, 1, 4, 129), device=cuda)
+        k.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        k.flash_attention(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        h = q.half()
+        k.flash_attention(h, h, h)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        t = q.transpose(2, 3)
+        k.flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="key mask"):
+        k.flash_attention(q, q, q, m.int())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k.flash_attention(q, q, q.cpu())
+
+
+def test_sdpa_on_the_card_launches_the_kernel(cuda):
+    from recommendflow_tpu_torch.ops import attention
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, kk, v = (torch.randn((2, 5, 16), generator=g, device=cuda)
+                for _ in range(3))
+    mask = torch.tensor([[1, 1, 1, 0, 0], [1, 1, 1, 1, 1]], dtype=torch.bool,
+                        device=cuda)
+    before = k.flash_attention.launches
+    got = attention.scaled_dot_product_attention(q, kk, v, mask)
+    assert k.flash_attention.launches == before + 1
+    ref = attention.scaled_dot_product_attention(q.cpu(), kk.cpu(), v.cpu(),
+                                                 mask.cpu())
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="key masks only"):
+        attention.scaled_dot_product_attention(
+            q, kk, v, torch.ones((2, 5, 5), dtype=torch.bool, device=cuda))
+
+
+def test_text_encoder_service_card_matches_cpu(cuda):
+    from recommendflow_tpu_torch.encoder import TextEncoderService, Tokenizer
+    from recommendflow_tpu_torch.encoder.synthetic import make_texts, make_vocab
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    vocab = make_vocab(3000)
+    tok = Tokenizer({t: i for i, t in enumerate(vocab)})
+    sizes = dict(max_len=64, batch_size=32, model_dim=64, num_layers=2,
+                 num_heads=4, ffn_hidden=128)
+    gpu = TextEncoderService(tok, device=cuda, seed=3, **sizes)
+    cpu = TextEncoderService(tok, device="cpu", **sizes)
+    cpu.model.load_state_dict({n: t.cpu() for n, t in
+                               gpu.model.state_dict().items()})
+    texts = make_texts(100, seed=4)
+    before = k.flash_attention.launches
+    a = gpu.encode(texts, normalize=False)
+    assert k.flash_attention.launches == before + 2 * 4   # 2 layers, 4 batches
+    b = cpu.encode(texts, normalize=False)
+    np.testing.assert_allclose(a, b, rtol=0, atol=2e-5)

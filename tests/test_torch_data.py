@@ -92,3 +92,32 @@ def test_hashing_and_metrics_copies_agree():
     assert jauc(y, s) == tauc(y, s)
     assert jap(y, s) == tap(y, s)
     assert jrp(y, s, 0.5) == trp(y, s, 0.5)
+
+
+def test_bert_encode_features_equal(tmp_path, monkeypatch):
+    """conf/demo_text_recall.yaml: the bert_encode features' token and
+    segment ids from the port's pipeline (its own tokenizer, through
+    data/schema.py:get_tokenizer) equal the JAX pipeline's."""
+    from recommendflow_tpu.data.pipeline import make_dataset as jmake
+    from recommendflow_tpu.data.schema import get_tokenizer as jtok
+    from recommendflow_tpu.data.synthetic import generate_records as jgen
+    from recommendflow_tpu_torch.data.pipeline import make_dataset as tmake
+    from recommendflow_tpu_torch.data.schema import get_tokenizer as ttok
+    from recommendflow_tpu_torch.encoder.tokenizer import Tokenizer
+    monkeypatch.chdir(tp.ROOT)          # the config's vocab path is relative
+    conf_path = os.path.join("conf", "demo_text_recall.yaml")
+    jc, tc = tp.conf_pair(conf_path)
+    paths = jgen(jc, str(tmp_path / "recs"), num_rows=300, num_files=1, seed=4)
+    pattern = os.path.join(os.path.dirname(paths[0]), "*.rfb")
+    jds, _ = jmake(jc, pattern, 128, shuffle=False, drop_remainder=False)
+    tds, _ = tmake(tc, pattern, 128, shuffle=False, drop_remainder=False)
+    jb, tb = list(jds), list(tds)
+    assert len(jb) == len(tb) == 3
+    keys = ("query_text", "query_text:seg", "title_text", "title_text:seg")
+    for a, b in zip(jb, tb):
+        for k in keys:
+            assert a[k].dtype == b[k].dtype == np.int32, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert (b["query_text"][:, 0] == ttok("conf/demo_vocab.txt").cls_id).all()
+    assert isinstance(ttok("conf/demo_vocab.txt"), Tokenizer)
+    assert ttok("conf/demo_vocab.txt").vocab == jtok("conf/demo_vocab.txt").vocab

@@ -6,6 +6,9 @@
 * An entry point asked for the default device raises on a machine without a
   card; a kernel wrapper handed a non-CPU tensor launches its kernel or
   raises, and never reaches the plain version.
+* The CPU rehearsal of chip_smoke.py (tests/test_torch_chip_smoke.py)
+  expects every phase the script has, but the build and the timings, which
+  need the card.
 """
 import ast
 import glob
@@ -52,7 +55,12 @@ def test_port_imports_no_jax_and_no_reference_package():
     for module in ("losses/match.py", "train/optimizers.py",
                    "train/trainer.py", "train/callbacks.py",
                    "train/checkpoint.py", "cli/train.py",
-                   "ops/cuda/table_update.py", "ops/cuda/sparse_apply.py"):
+                   "ops/cuda/table_update.py", "ops/cuda/sparse_apply.py",
+                   "encoder/tokenizer.py", "encoder/text_encoder.py",
+                   "encoder/pretrained.py", "ops/attention.py",
+                   "ops/transformer.py", "ops/cuda/flash_attention.py",
+                   "retrieval/whitening.py", "serving/server.py",
+                   "serving/client.py", "cli/encode.py", "cli/serve.py"):
         assert os.path.join("recommendflow_tpu_torch", module) in rel, module
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
@@ -188,3 +196,74 @@ def test_non_cpu_tensor_never_reaches_the_plain_version(monkeypatch, kernel):
             group=16, num_items=30)
         assert m1.shape == (2, 2)
         assert grouped_topk.grouped_score_max.launches == before
+
+
+def test_encoder_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    _no_card(monkeypatch)
+    from recommendflow_tpu_torch.cli import encode as encode_cli
+    from recommendflow_tpu_torch.cli import serve as serve_cli
+    from recommendflow_tpu_torch.encoder import (TextEncoderService, Tokenizer,
+                                                 build_demo_vocab)
+    from recommendflow_tpu_torch.ops.transformer import TextEncoder
+    vocab = build_demo_vocab(["hello"])
+    path = tmp_path / "vocab.txt"
+    path.write_text("\n".join(sorted(vocab, key=vocab.get)))
+    (tmp_path / "in.txt").write_text("hello\n")
+    small = dict(max_len=8, model_dim=16, num_layers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TextEncoderService(Tokenizer(vocab), **small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TextEncoder(len(vocab), **small)
+    flags = ["--vocab", str(path), "--max_len", "8", "--model_dim", "16",
+             "--num_layers", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encode_cli.main(flags + ["--input", str(tmp_path / "in.txt"),
+                                 "--out", str(tmp_path / "o.npz")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.build(flags + ["--port", "0", "--host", "127.0.0.1"])
+    assert TextEncoderService(Tokenizer(vocab), device="cpu",
+                              **small).device == torch.device("cpu")
+    encode_cli.main(flags + ["--input", str(tmp_path / "in.txt"),
+                             "--out", str(tmp_path / "o.npz"),
+                             "--device", "cpu"])
+    backend, httpd = serve_cli.build(flags + ["--port", "0", "--host",
+                                              "127.0.0.1", "--device", "cpu"])
+    httpd.server_close()
+    backend.close()
+
+
+def test_flash_attention_never_takes_the_plain_version_off_the_cpu(
+        monkeypatch):
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as kfa
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with a non-CPU tensor")
+
+    monkeypatch.setattr(kfa, "flash_attention_plain", boom)
+    q = torch.empty((2, 3, 5, 8), device="meta")
+    mask = torch.empty((2, 5), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kfa.flash_attention(q, q, q, mask)
+    before = kfa.flash_attention.launches
+    monkeypatch.undo()
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 3, 5, 8).astype(np.float32))
+    assert kfa.flash_attention(x, x, x).shape == (2, 3, 5, 8)
+    assert kfa.flash_attention.launches == before
+
+
+def _module_constant(path, name):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise KeyError(f"{name} not found in {path}")
+
+
+def test_chip_smoke_rehearsal_covers_every_phase():
+    phases = _module_constant(os.path.join(ROOT, "chip_smoke.py"), "PHASES")
+    rehearsed = _module_constant(
+        os.path.join(ROOT, "tests", "test_torch_chip_smoke.py"), "REHEARSED")
+    assert {"flash_attention", "encode", "serve", "cli"} <= set(phases)
+    assert sorted(rehearsed) == sorted(set(phases) - {"build", "times"})
