@@ -4,21 +4,29 @@
 //           = 2 q . v_i - |v_i|^2     (l2 surrogate, when sq_norms is given)
 //   and s(q, i) = NEG = -1e30 for i >= num_items (padding), before the max.
 //
-// Replaces: recommendflow_tpu/ops/pallas/grouped_topk.py, grouped_score_max.
-// Its output there is transposed ([N/G, Q]) only for a Mosaic reshape limit;
-// this kernel writes [Q, N/G] directly.
+// Replaces: recommendflow_tpu/ops/pallas/grouped_topk.py, grouped_score_max,
+// in its three corpus types: f32, bf16 and uint8 (SQ8 codes, :50-56). Its
+// output there is transposed ([N/G, Q]) only for a Mosaic reshape limit;
+// this kernel writes [Q, N/G] directly. For a bf16 or uint8 corpus the
+// wrapper rounds the queries through bf16 first, as the Pallas function does
+// (:84-87); codes <= 255 and bf16 values widen to f32 exactly, so every
+// product is exact in f32 and only the order of the f32 sums differs.
 //
 // Bound: operations. 2 * Q * N * D flops: for a 4096-query block over a
 // 1,048,576 x 128 corpus that is 1.10 TFLOP, about 16 ms at the H100 SXM's
 // 67 TFLOP/s FP32 rate outside the tensor cores (2.2 ms on TF32 tensor
-// cores, a later kernel's target). The m1 write is 1.07 GB (~0.3 ms).
+// cores, a later kernel's target). The m1 write is 1.07 GB (~0.3 ms). The
+// bf16 and uint8 forms do bf16 x bf16 work (queries rounded to bf16, codes
+// <= 255 exact in bf16), whose bound is the bf16 tensor-core rate: 1.11 ms
+// at that shape (989 TFLOP/s), above the bytes (0.36 ms for uint8 codes).
 //
 // Design (plain FP32 SIMT; wgmma and TMA are later work):
 //   * block = 256 threads on a 128-query x 128-item output tile; the grid is
 //     1-D with the query tile fastest, so consecutive blocks share one corpus
 //     tile and the corpus streams from device memory about once per call;
 //   * query and corpus tiles are staged through shared memory in D-chunks of
-//     16, stored k-major; a bf16 corpus is widened to f32 there;
+//     16, stored k-major; a bf16 or uint8 corpus is widened to f32 there
+//     (one element a thread: the 16-byte loads of the codes are later work);
 //   * each thread keeps an 8 x 8 f32 accumulator in registers: queries
 //     {ty*4+i, 64+ty*4+i} x items {tx*4+j, 64+tx*4+j}, so a thread holds runs
 //     of 4 consecutive items and a group of G items spans G/4 neighbouring
@@ -45,6 +53,7 @@ __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float widen(uint8_t x) { return (float)x; }
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -146,7 +155,7 @@ cudaError_t launch(const float* q, const void* v, const float* sqn, float* m1,
 
 }  // namespace
 
-// queries [nq, d] f32; vecs [n_pad, d] f32 (vec_dtype 0) or bf16 (1);
+// queries [nq, d] f32; vecs [n_pad, d] f32 (vec_dtype 0), bf16 (1) or uint8 (2);
 // sq_norms [n_pad] f32 or null; m1 [nq, n_pad / group] f32.
 // group must be 4, 8, 16, 32 or 64 and divide n_pad. Returns a cudaError_t.
 extern "C" int rf_grouped_score_max(const float* queries, const void* vecs,
@@ -164,6 +173,9 @@ extern "C" int rf_grouped_score_max(const float* queries, const void* vecs,
   if (vec_dtype == 1)
     return (int)launch<__nv_bfloat16>(queries, vecs, sq_norms, m1, nq, n_pad,
                                       d, group, num_items, s);
+  if (vec_dtype == 2)
+    return (int)launch<uint8_t>(queries, vecs, sq_norms, m1, nq, n_pad, d,
+                                group, num_items, s);
   return (int)cudaErrorInvalidValue;
 }
 

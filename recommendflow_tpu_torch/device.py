@@ -17,7 +17,8 @@ def resolve_device(device: Union[str, torch.device, None] = DEFAULT_DEVICE
                    ) -> torch.device:
     """'cuda' / 'cuda:1' / 'cpu' / torch.device -> torch.device.
 
-    Raises RuntimeError for a CUDA device when no card is visible."""
+    Raises RuntimeError for a CUDA device when no card (or no card of that
+    index) is visible."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -25,4 +26,8 @@ def resolve_device(device: Union[str, torch.device, None] = DEFAULT_DEVICE
             f"device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device '{dev}' (cuda or cpu)")
+    if dev.type == "cuda" and dev.index is not None \
+            and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"device '{dev}' requested but only "
+                           f"{torch.cuda.device_count()} CUDA device(s) exist")
     return dev

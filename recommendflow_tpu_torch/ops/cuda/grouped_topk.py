@@ -3,12 +3,14 @@ retrieval, `m1[q, g] = max over the G items of group g of (q·v or
 2q·v − ‖v‖²)`, items at or past `num_items` scoring NEG.
 
 Replaces `recommendflow_tpu/ops/pallas/grouped_topk.py:grouped_score_max`,
-with the output untransposed (`[Q, N_pad/G]`). The CUDA source, its bound and
-its design are in `csrc/grouped_topk.cu`.
+with the output untransposed (`[Q, N_pad/G]`), for f32, bf16 and uint8 (SQ8
+code) corpora. The CUDA source, its bound and its design are in
+`csrc/grouped_topk.cu`.
 
 `grouped_score_max` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises. `grouped_score_max.launches` counts
-launches.
+launches, `grouped_score_max.launches_by_dtype` the same launches by corpus
+type ("float32", "bfloat16", "uint8").
 """
 from __future__ import annotations
 
@@ -23,15 +25,16 @@ _NAME = "grouped_topk"
 NEG = -1e30
 GROUPS = (4, 8, 16, 32, 64)   # group sizes the kernel takes
 
-_VEC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VEC_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
 def _query_operand(queries: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     """Queries as the kernel multiplies them: f32, rounded through bf16 first
-    for a bf16 corpus (the Pallas kernel feeds the MXU a bf16 x bf16 product,
-    grouped_topk.py:84-87; products of bf16 values are exact in f32)."""
+    for a bf16 or uint8 corpus (the Pallas kernel feeds the MXU a bf16 x bf16
+    product, grouped_topk.py:84-87, the uint8 codes cast to bf16 exactly;
+    products of bf16 values and codes <= 255 are exact in f32)."""
     q = queries.float()
-    if vecs.dtype == torch.bfloat16:
+    if vecs.dtype in (torch.bfloat16, torch.uint8):
         q = q.to(torch.bfloat16).float()
     return q
 
@@ -40,7 +43,8 @@ def grouped_score_max_plain(queries: torch.Tensor, vecs: torch.Tensor,
                             sq_norms: Optional[torch.Tensor], *, group: int,
                             num_items: int) -> torch.Tensor:
     """The plain PyTorch version: the full [Q, N_pad] score matrix, masked,
-    then the max over each run of `group` items."""
+    then the max over each run of `group` items (a bf16 or uint8 corpus
+    widened to f32, exactly)."""
     n_pad = vecs.shape[0]
     s = _query_operand(queries, vecs) @ vecs.float().T
     # in place: at Q = 4096 over a 1M-item corpus s alone is 17 GB
@@ -73,7 +77,7 @@ def launch_grouped_score_max(queries: torch.Tensor, vecs: torch.Tensor,
                          f"device (got {[str(t.device) for t in tensors]})")
     if vecs.dtype not in _VEC_DTYPES:
         raise ValueError(f"corpus dtype {vecs.dtype} not supported "
-                         f"(float32, bfloat16)")
+                         f"(float32, bfloat16, uint8)")
     if queries.dim() != 2 or vecs.dim() != 2 or queries.shape[1] != vecs.shape[1]:
         raise ValueError(f"shapes {tuple(queries.shape)} x {tuple(vecs.shape)} "
                          f"are not [Q, D] x [N_pad, D]")
@@ -101,13 +105,15 @@ def launch_grouped_score_max(queries: torch.Tensor, vecs: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "grouped_score_max")
     grouped_score_max.launches += 1
+    grouped_score_max.launches_by_dtype[str(v.dtype).split(".")[-1]] += 1
     return m1
 
 
 def grouped_score_max(queries: torch.Tensor, vecs: torch.Tensor,
                       sq_norms: Optional[torch.Tensor], *, group: int,
                       num_items: int) -> torch.Tensor:
-    """(queries [Q, D], vecs [N_pad, D] f32 or bf16, sq_norms [N_pad] or None)
+    """(queries [Q, D], vecs [N_pad, D] f32, bf16 or uint8, sq_norms [N_pad]
+    or None)
     -> m1 [Q, N_pad / group] f32 group maxima of the masked score matrix."""
     if vecs.device.type == "cpu" and queries.device.type == "cpu":
         return grouped_score_max_plain(queries, vecs, sq_norms, group=group,
@@ -117,3 +123,4 @@ def grouped_score_max(queries: torch.Tensor, vecs: torch.Tensor,
 
 
 grouped_score_max.launches = 0
+grouped_score_max.launches_by_dtype = {"float32": 0, "bfloat16": 0, "uint8": 0}

@@ -8,7 +8,7 @@ Trainer.fit (one grouped_score_max scan per query block on a large corpus).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -114,6 +114,30 @@ def batch_click_ranks(searcher: FlatSearcher, query_vecs: np.ndarray,
         ranks.append(click_ranks(np.asarray(items),
                                  label_items[start:start + batch_size]))
     return np.concatenate(ranks)
+
+
+def batch_compute_group_recall_score(searcher: FlatSearcher,
+                                     query_vecs: np.ndarray,
+                                     label_items: np.ndarray,
+                                     group_ids: np.ndarray,
+                                     topk_list: Sequence[int] = (5, 10, 50, 100),
+                                     weights: Optional[np.ndarray] = None,
+                                     batch_size: int = 8192
+                                     ) -> Tuple[Dict[str, float],
+                                                Dict[Any, Dict[str, float]]]:
+    """Overall + per-group metrics keyed by group_ids (parity:
+    eval_utils.py:150-203)."""
+    ranks = batch_click_ranks(searcher, query_vecs, label_items,
+                              max(topk_list), batch_size)
+    weights = None if weights is None else np.asarray(weights)
+    overall = recall_metrics(ranks, topk_list, weights)
+    per_group: Dict[Any, Dict[str, float]] = {}
+    for g in np.unique(np.asarray(group_ids)):
+        m = np.asarray(group_ids) == g
+        per_group[g] = recall_metrics(ranks[m], topk_list,
+                                      None if weights is None else weights[m])
+        per_group[g]["count"] = int(m.sum())
+    return overall, per_group
 
 
 def recall_report(metrics: Dict[str, float],

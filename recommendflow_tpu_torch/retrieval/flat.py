@@ -1,5 +1,5 @@
 """FlatSearcher: exact top-k retrieval on the card (the counterpart of
-`recommendflow_tpu/retrieval/flat.py:TpuSearcher`, metrics ip / cos / l2).
+`recommendflow_tpu/retrieval/flat.py:TpuSearcher`).
 
   * items live on the device as a [N_pad, D] f32 matrix, zero-padded to a
     block multiple (padded rows score NEG);
@@ -12,10 +12,17 @@
       - single-level group-max prune (mid-size corpora);
       - plain matmul + top-k (small corpora);
   * cos = L2-normalize then ip; l2 ranks by the surrogate 2q·v − ‖v‖² and
-    reports the real distance.
+    reports the real distance;
+  * the six distance metrics (l1, l_inf, l_p, brayCurtis, canberra,
+    jensen_shannon) scan query and item blocks of pairwise distances and
+    return them ascending, FAISS-style;
+  * save/load write and read the JAX package's `.npz` keys, so an index
+    crosses between the two packages; a pickle keeps the device by name and
+    restores onto it.
 """
 from __future__ import annotations
 
+import pickle
 from typing import Any, Optional, Sequence, Union
 
 import numpy as np
@@ -25,32 +32,44 @@ from recommendflow_tpu_torch.device import resolve_device
 from recommendflow_tpu_torch.ops.cuda.grouped_topk import grouped_score_max
 from recommendflow_tpu_torch.retrieval import _kernels
 from recommendflow_tpu_torch.retrieval._kernels import (
-    NEG, _GROUP, _SUPERGROUP, _l2_normalize, _tournament_select,
+    NEG, _DISTANCE_METRICS, _GROUP, _SUPERGROUP, _l2_from_surrogate,
+    _l2_normalize, _make_pairwise_distance, _to_host, _tournament_select,
     resolve_metric)
+
+# the [Qb, nb, D] f32 temporary of a distance block stays under ~256 MB
+_DISTANCE_TEMP_ELEMS = 1 << 26
+
+
+def _npz_path(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
 
 
 class FlatSearcher:
     """Exact top-k searcher over an item embedding matrix.
 
-    metric : 'ip' | 'cos' | 'l2', or a raw FAISS MetricType int for those.
+    metric : 'ip' | 'cos' | 'l2' (matmul family), or a distance metric 'l1' |
+             'l_inf' | 'l_p' | 'brayCurtis' | 'canberra' | 'jensen_shannon'
+             (returned ascending), or a raw FAISS MetricType int.
+    metric_arg : p of 'l_p' (sum|x-y|^p, no 1/p root: the FAISS formula).
     items  : optional identifier array aligned with the vectors (returned by
              search).
     device : where the corpus lives and the search runs (default "cuda";
              raises without a card unless "cpu" is asked for).
     """
 
-    SUPPORTED_METRICS = ("ip", "cos", "l2")
+    SUPPORTED_METRICS = ("ip", "cos", "l2") + _DISTANCE_METRICS
 
     def __init__(self, dim: int, metric: Union[str, int] = "cos",
                  query_block: int = 4096, pad_multiple: int = 512,
+                 metric_arg: float = 3.0,
                  device: Union[str, torch.device] = "cuda"):
         metric = resolve_metric(metric)
         if metric not in self.SUPPORTED_METRICS:
-            raise ValueError(f"metric '{metric}' not in {self.SUPPORTED_METRICS}"
-                             f" (the distance metrics come in a later slice)")
+            raise ValueError(f"metric '{metric}' not in {self.SUPPORTED_METRICS}")
         self.device = resolve_device(device)
         self.dim = dim
         self.metric = metric
+        self.metric_arg = float(metric_arg)
         self.query_block = query_block
         self.pad_multiple = pad_multiple
         self.items: Optional[np.ndarray] = None
@@ -60,14 +79,17 @@ class FlatSearcher:
         self._search_fn = {}
 
     # --------------------------------------------------------------- build
-    def train(self, vectors: np.ndarray, items: Optional[Sequence[Any]] = None):
-        """Load the item corpus (FAISS naming: exact search needs no
-        training). Replaces any earlier corpus."""
+    def _prepare(self, vectors) -> np.ndarray:
+        """[N, dim] f32 vectors, L2-normalized for cos."""
         vectors = np.asarray(vectors, np.float32)
         if vectors.ndim != 2 or vectors.shape[1] != self.dim:
             raise ValueError(f"expected [N, {self.dim}] vectors, got {vectors.shape}")
-        if self.metric == "cos":
-            vectors = _l2_normalize(vectors)
+        return _l2_normalize(vectors) if self.metric == "cos" else vectors
+
+    def train(self, vectors: np.ndarray, items: Optional[Sequence[Any]] = None):
+        """Load the item corpus (FAISS naming: exact search needs no
+        training). Replaces any earlier corpus."""
+        vectors = self._prepare(vectors)
         self.num_items = len(vectors)
         # large corpora pad to the top-k chunk size so the group reshapes
         # divide the item axis evenly
@@ -94,19 +116,48 @@ class FlatSearcher:
         vectors = np.asarray(vectors, np.float32)
         if self._vecs is None:
             return self.train(vectors, items)
-        existing = self._vecs[:self.num_items].cpu().numpy()
+        existing = _to_host(self._vecs[:self.num_items])
         new_items = np.asarray(items) if items is not None else \
             np.arange(self.num_items, self.num_items + len(vectors))
         return self.train(np.concatenate([existing, vectors], axis=0),
                           items=np.concatenate([self.items, new_items]))
 
     # -------------------------------------------------------------- search
+    def _is_empty(self) -> bool:
+        """True when no corpus is loaded; subclasses that keep the corpus in
+        another form (codes) override this."""
+        return self._vecs is None
+
     def _build_search(self, k: int):
         metric = self.metric
         num_items = self.num_items
         n_pad = int(self._vecs.shape[0])
         dim = self.dim
         dev = self.device
+
+        if metric in _DISTANCE_METRICS:
+            # blocked pairwise distances: no matmul form exists for these,
+            # and unlike XLA torch does not fuse the broadcast-sub-reduce, so
+            # query and item blocks bound the [Qb, nb, D] temporary
+            dist = _make_pairwise_distance(metric, self.metric_arg)
+            nb = 512
+            while n_pad % nb:          # pad_multiple is caller-configurable
+                nb //= 2
+            qb = max(1, _DISTANCE_TEMP_ELEMS // (nb * dim))
+
+            def search_block(queries):
+                out_s, out_i = [], []
+                for q0 in range(0, queries.shape[0], qb):
+                    qq = queries[q0:q0 + qb]
+                    d = torch.cat([dist(qq, self._vecs[s:s + nb])
+                                   for s in range(0, n_pad, nb)], dim=1)
+                    d[:, num_items:] = -NEG
+                    top, idx = torch.topk(-d, k, dim=1)
+                    out_s.append(-top)
+                    out_i.append(idx)
+                return torch.cat(out_s), torch.cat(out_i)
+
+            return search_block
 
         def raw_scores(queries):
             if metric == "l2":
@@ -118,9 +169,7 @@ class FlatSearcher:
 
         def finish(queries, top_scores, top_idx):
             if metric == "l2":
-                # the 2q·v − ‖v‖² surrogate back to the real L2 distance
-                q_sq = torch.sum(queries ** 2, dim=-1, keepdim=True)
-                top_scores = torch.sqrt(torch.clamp(q_sq - top_scores, min=0.0))
+                top_scores = _l2_from_surrogate(queries, top_scores)
             return top_scores, top_idx
 
         G, G2 = _GROUP, _SUPERGROUP
@@ -169,7 +218,7 @@ class FlatSearcher:
 
         Returns (items, scores, indices) numpy arrays [Q, k] (dicts by k for
         a list); items omitted when return_items=False."""
-        if self._vecs is None:
+        if self._is_empty():
             raise RuntimeError("searcher is empty — call train(vectors) first")
         ks = sorted({int(k) for k in (topk if isinstance(topk, (list, tuple))
                                       else [topk])})
@@ -200,3 +249,49 @@ class FlatSearcher:
         if return_items and self.items is not None:
             return slice_k(self.items[idx]), slice_k(scores), slice_k(idx)
         return slice_k(scores), slice_k(idx)
+
+    # ------------------------------------------------------------- persist
+    def save(self, path: str):
+        """The JAX package's `.npz` keys (vecs, items, dim, metric)."""
+        if self._vecs is None:
+            raise RuntimeError("nothing to save")
+        np.savez_compressed(path, vecs=_to_host(self._vecs[:self.num_items]),
+                            items=self.items, dim=self.dim, metric=self.metric)
+
+    @classmethod
+    def load(cls, path: str, device: Union[str, torch.device] = "cuda"
+             ) -> "FlatSearcher":
+        data = np.load(_npz_path(path), allow_pickle=True)
+        s = cls(int(data["dim"]), str(data["metric"]), device=device)
+        # cos vectors were saved normalized; train() re-normalizes (no-op)
+        return s.train(data["vecs"], items=data["items"])
+
+    def __getstate__(self):
+        """Tensors as numpy and the device by name; the search closures are
+        rebuilt after unpickling."""
+        state = self.__dict__.copy()
+        state["device"] = str(self.device)
+        state["_vecs"] = _to_host(self._vecs[:self.num_items]) \
+            if self._vecs is not None else None
+        state["_sq_norms"] = None
+        state["_search_fn"] = {}
+        return state
+
+    def __setstate__(self, state):
+        vecs = state.pop("_vecs")
+        self.__dict__.update(state)
+        # raises where the recorded device is absent: no quiet move to the CPU
+        self.device = resolve_device(state["device"])
+        self._vecs = None
+        if vecs is not None:
+            self.train(vecs, items=state.get("items"))
+
+    def dump(self, path: str):
+        """Whole-searcher pickle."""
+        with open(path, "wb") as f:
+            pickle.dump(self, f)
+
+    @classmethod
+    def load_pickle(cls, path: str) -> "FlatSearcher":
+        with open(path, "rb") as f:
+            return pickle.load(f)

@@ -101,3 +101,28 @@ def bf16_ulp_err(a, b) -> float:
     mag = np.maximum(np.maximum(np.abs(a32), np.abs(b32)), np.float32(2.0 ** -126))
     spacing = np.exp2(np.floor(np.log2(mag)) - 7)
     return float((np.abs(a32 - b32) / spacing).max()) if a32.size else 0.0
+
+
+def clustered_world():
+    """A clustered corpus (IVF's regime): 24 latent clusters in 32 dims,
+    scaled so that ip scores stay near 10 (f32 spacing ~1e-6)."""
+    rng = np.random.RandomState(11)
+    centers = rng.randn(24, 32).astype(np.float32) * 0.5
+    corpus = (centers[rng.randint(24, size=4000)] +
+              rng.randn(4000, 32).astype(np.float32) * 0.125)
+    queries = corpus[:40] + rng.randn(40, 32).astype(np.float32) * 0.04
+    return corpus, queries
+
+
+def agree(a, b, atol, score_of=None):
+    """(scores, ids) pairs: scores within atol; ids equal except where the
+    two ids' scores (score_of(row, id), else the returned ones) tie within
+    atol."""
+    (sa, ia), (sb, ib) = a, b
+    assert sa.shape == sb.shape and ia.shape == ib.shape
+    np.testing.assert_allclose(sa, sb, rtol=0, atol=atol)
+    for r, c in zip(*np.nonzero(ia != ib)):
+        if score_of is not None:
+            assert abs(score_of(r, ia[r, c]) - score_of(r, ib[r, c])) <= atol
+        else:
+            assert abs(sa[r, c] - sb[r, c]) <= atol

@@ -1,8 +1,9 @@
 """chip_smoke.py's contract where there is no card: it exits non-zero and
 prints no result, alone in a directory as well, and its CPU rehearsal drives
 every phase at toy sizes through the plain versions (the serving slice, the
-training run of the three table-update modes, the text encoder's encode and
-HTTP serving, the CLIs)."""
+training run of the three table-update modes, the quantized and approximate
+searchers, the text encoder's encode and HTTP serving, the text search, the
+CLIs)."""
 import json
 import os
 import shutil
@@ -15,7 +16,8 @@ SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
 # every phase but the build and the timings, which need the card
 REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
-             "flash_attention", "slice", "train", "encode", "serve", "cli")
+             "flash_attention", "slice", "train", "sq_search", "ann", "encode",
+             "serve", "text_search", "cli")
 
 
 def _run(args, cwd):
@@ -49,6 +51,7 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
     assert sorted(phases) == sorted(REHEARSED)
     assert phases["gather_rows"]["bitwise_equal"] is True
     assert max(phases["grouped_score_max"]["max_abs_err"].values()) <= 1e-4
+    assert {"u8_ip", "u8_l2"} <= set(phases["grouped_score_max"]["max_abs_err"])
     assert phases["scatter_add_rows"]["bitwise_equal"] is True
     for name in ("rowwise_adagrad_update", "sparse_adagrad_apply"):
         assert phases[name]["p_ulps"] == 0 and phases[name]["untouched_bitwise"]
@@ -75,3 +78,17 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
     assert serve["served_vs_direct"] == 0.0
     assert serve["concurrent_encode_calls"] <= serve["concurrent_requests"]
     assert phases["cli"]["encode_cli_vs_service"] <= 1e-6
+    sq = phases["sq_search"]
+    assert sorted(sq["results"]) == sorted(sq["checks"]) == ["Flat", "SQ8",
+                                                             "SQbf16"]
+    for c in sq["checks"].values():
+        assert c["score_rel_err"] <= sq["tolerance"]
+    assert sq["results"]["SQbf16"]["recall@100_vs_flat"] > 0.95
+    ann = phases["ann"]
+    assert sorted(ann["checks"]) == ["IVF64,PQ16@full_probe",
+                                     "IVF64@full_probe", "PQ16"]
+    assert set(ann["results"]) == {"Flat", "IVF64", "PQ16", "IVF64,PQ16"}
+    assert all(0 < r["recall@100_vs_flat"] <= 1 for k, r in ann["results"].items()
+               if k != "Flat")
+    assert phases["text_search"]["self_in_top10"] == 1.0
+    assert phases["text_search"]["tournament"] is False

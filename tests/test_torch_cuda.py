@@ -6,7 +6,9 @@ needed there, so conftest.py is skipped):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 gather_rows and scatter_add_rows must equal their plain versions bitwise;
-grouped_score_max agrees to atol 1e-4 (f32 sums in another order);
+grouped_score_max agrees to atol 1e-4 (f32 sums in another order), in its
+f32, bf16 and uint8 forms; the SQ, IVF and PQ searchers on the card agree
+with their CPU runs to 1e-4;
 rowwise_adagrad_update and sparse_adagrad_apply agree to 1 ulp of the table
 type for p and rtol 1e-6 for acc (a row's mean is reduced in another order,
 so acc may differ in its last bit and p by one rounding), untouched rows
@@ -100,6 +102,91 @@ def test_grouped_score_max_kernel(cuda, vec_dtype, l2, q, n_pad, d, group):
     with pytest.raises(ValueError):
         grouped_topk.grouped_score_max(qs, v, sqn, group=12,
                                        num_items=num_items)
+
+
+@pytest.mark.parametrize("group", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("l2", [False, True])
+@pytest.mark.parametrize("q,n_pad,d", [(37, 1024 + 64, 40), (5, 3 * 64, 7),
+                                       (130, 2048 + 192, 129), (256, 4096, 128)])
+def test_grouped_score_max_uint8_kernel(cuda, group, l2, q, n_pad, d):
+    """The uint8 (SQ8 code) form at odd shapes: D not a multiple of 16, N_pad
+    not a multiple of 128, a masked tail, every group size. Queries of the
+    size q ⊙ scale has (the codes reach 255), rounded to bf16 on both
+    sides; atol 1e-4 for f32 sums in another order."""
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qs = torch.randn((q, d), generator=g, device=cuda) * 0.01
+    codes = torch.randint(0, 256, (n_pad, d), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    vmin = torch.randn((d,), generator=g, device=cuda) * 0.1
+    xhat = vmin + 0.01 * codes.float()
+    sqn = (xhat ** 2).sum(1) if l2 else None
+    num_items = n_pad - 3 * group // 2
+    before = dict(grouped_topk.grouped_score_max.launches_by_dtype)
+    got = grouped_topk.grouped_score_max(qs, codes, sqn, group=group,
+                                         num_items=num_items)
+    ref = grouped_topk.grouped_score_max_plain(qs, codes, sqn, group=group,
+                                               num_items=num_items)
+    torch.cuda.synchronize()
+    after = grouped_topk.grouped_score_max.launches_by_dtype
+    assert after["uint8"] == before["uint8"] + 1
+    assert after["float32"] == before["float32"]
+    assert got.shape == (q, n_pad // group)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="not supported"):
+        grouped_topk.grouped_score_max(qs, codes.to(torch.int8), sqn,
+                                       group=group, num_items=num_items)
+
+
+@pytest.mark.parametrize("qtype", ["sq8", "bf16"])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_sq_searcher_card_matches_cpu(cuda, monkeypatch, qtype, metric):
+    """The tournament path (forced on a small corpus) on the card against the
+    same searcher on the CPU: the kernel's uint8 form (sq8) or bf16 form
+    launched once per query block; scores within 1e-4, ids as sets."""
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk
+    from recommendflow_tpu_torch.retrieval import _kernels
+    from recommendflow_tpu_torch.retrieval.sq import SqSearcher
+    monkeypatch.setattr(_kernels, "_HIER_MIN_ITEMS", 1024)
+    rng = np.random.RandomState(4)
+    vecs = rng.randn(30000, 96).astype(np.float32)
+    qs = rng.randn(70, 96).astype(np.float32)
+    form = "uint8" if qtype == "sq8" else "bfloat16"
+    before = grouped_topk.grouped_score_max.launches_by_dtype[form]
+    gpu = SqSearcher(96, metric, qtype=qtype, item_block=2048, query_block=32,
+                     device=cuda).train(vecs)
+    s_gpu, i_gpu = gpu.search(qs, 20, return_items=False)
+    assert grouped_topk.grouped_score_max.launches_by_dtype[form] == before + 3
+    cpu = SqSearcher(96, metric, qtype=qtype, item_block=2048, query_block=32,
+                     device="cpu").train(vecs)
+    assert torch.equal(gpu._codes.cpu(), cpu._codes)
+    s_cpu, i_cpu = cpu.search(qs, 20, return_items=False)
+    np.testing.assert_allclose(np.sort(s_gpu, 1), np.sort(s_cpu, 1), rtol=0,
+                               atol=1e-4)
+    assert np.mean([set(a) == set(b) for a, b in zip(i_gpu, i_cpu)]) >= 0.97
+
+
+def test_ivf_and_pq_card_match_cpu(cuda, tmp_path):
+    """IVF with the CPU's quantizer carried over, PQ and IVF-PQ from the
+    CPU's saved state: the same top-k (scores within 1e-4)."""
+    from recommendflow_tpu_torch.retrieval import (IvfPqSearcher, IvfSearcher,
+                                                   PqSearcher)
+    corpus, q = tp.clustered_world()
+    cpu = IvfSearcher(32, "ip", nlist=32, nprobe=4, cap_factor=1.5,
+                      device="cpu").train(corpus)
+    gpu = IvfSearcher(32, "ip", nlist=32, nprobe=4, cap_factor=1.5,
+                      device=cuda).train(corpus,
+                                         centroids=cpu._centroids.numpy())
+    tp.agree(cpu.search(q, 10, return_items=False),
+             gpu.search(q, 10, return_items=False), 1e-4)
+    for cls, kw in ((PqSearcher, dict(num_subspaces=8, item_block=512)),
+                    (IvfPqSearcher, dict(nlist=16, nprobe=4, num_subspaces=8,
+                                         cap_factor=1.2))):
+        c = cls(32, "l2", device="cpu", **kw).train(corpus)
+        c.save(str(tmp_path / "i.npz"))
+        g = cls.load(str(tmp_path / "i.npz"), device=cuda)
+        tp.agree(c.search(q, 10, return_items=False),
+                 g.search(q, 10, return_items=False), 1e-4)
 
 
 def test_flat_searcher_card_matches_cpu(cuda):

@@ -60,7 +60,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "encoder/pretrained.py", "ops/attention.py",
                    "ops/transformer.py", "ops/cuda/flash_attention.py",
                    "retrieval/whitening.py", "serving/server.py",
-                   "serving/client.py", "cli/encode.py", "cli/serve.py"):
+                   "serving/client.py", "cli/encode.py", "cli/serve.py",
+                   "retrieval/sq.py", "retrieval/ivf.py", "retrieval/pq.py",
+                   "retrieval/factory.py", "retrieval/searcher.py",
+                   "retrieval/encoder_search.py"):
         assert os.path.join("recommendflow_tpu_torch", module) in rel, module
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
@@ -196,6 +199,43 @@ def test_non_cpu_tensor_never_reaches_the_plain_version(monkeypatch, kernel):
             group=16, num_items=30)
         assert m1.shape == (2, 2)
         assert grouped_topk.grouped_score_max.launches == before
+
+
+def test_retrieval_entry_points_raise_without_a_card(monkeypatch):
+    _no_card(monkeypatch)
+    from recommendflow_tpu_torch.retrieval import (EncoderSearcher,
+                                                   IvfPqSearcher, IvfSearcher,
+                                                   PqSearcher, SqSearcher,
+                                                   index_factory)
+    vecs = np.random.RandomState(0).randn(50, 8).astype(np.float32)
+    for make in (lambda: SqSearcher(8), lambda: IvfSearcher(8),
+                 lambda: PqSearcher(8), lambda: IvfPqSearcher(8),
+                 lambda: index_factory(8, "SQ8"),
+                 lambda: EncoderSearcher(items=vecs, index_param="SQ8").train()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    s = EncoderSearcher(items=vecs, index_param="SQ8", device="cpu").train()
+    assert str(s.index.device) == "cpu"
+
+
+def test_uint8_scan_never_takes_the_plain_version_off_the_cpu(monkeypatch):
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with a non-CPU tensor")
+
+    monkeypatch.setattr(grouped_topk, "grouped_score_max_plain", boom)
+    q = torch.empty((2, 8), device="meta")
+    codes = torch.empty((32, 8), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        grouped_topk.grouped_score_max(q, codes, None, group=16, num_items=30)
+    monkeypatch.undo()
+    before = dict(grouped_topk.grouped_score_max.launches_by_dtype)
+    m1 = grouped_topk.grouped_score_max(
+        torch.ones((2, 8)), torch.full((32, 8), 3, dtype=torch.uint8), None,
+        group=16, num_items=30)
+    assert m1.tolist() == [[24.0, 24.0], [24.0, 24.0]]
+    assert grouped_topk.grouped_score_max.launches_by_dtype == before
 
 
 def test_encoder_entry_points_raise_without_a_card(monkeypatch, tmp_path):
