@@ -7,15 +7,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
   1. build                  nvcc-builds every kernel of csrc/ (one process per
                             source, started together) and reports build time
-                            and ptxas usage;
+                            and ptxas usage (registers, spills), and the
+                            HGMMA (wgmma) count in grouped_topk's SASS;
   2. gather_rows            against its plain version on the bench_recall
                             dim-64 table (770 MB bf16) at one batch's 87,040
                             ids: bitwise;
   3. grouped_score_max      against its plain version at Q = 4096,
-                            N_pad = 1,048,576, D = 128: f32 ip, bf16 corpus,
-                            f32 l2, and the uint8 form on the SQ8 codes of
-                            the same corpus (queries q ⊙ scale, ip and l2);
-                            max abs diff <= 1e-4 (f32 sums in another order;
+                            N_pad = 1,048,576, D = 128: f32 ip and l2 (FP32
+                            SIMT kernel), the bf16 corpus and the uint8 form
+                            on the SQ8 codes of the same corpus (queries
+                            q ⊙ scale, ip and l2) on bf16 tensor cores; max
+                            abs diff <= 1e-4 (f32 sums in another order;
                             both sides round the queries of a bf16 or uint8
                             corpus to bf16, and those products are exact);
   4. scatter_add_rows       one batch's stored-row gradients (87,040 rows of
@@ -33,8 +35,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             strided split_heads views of [B, L, H*D], key
                             masks from the token lengths of 256 texts), and
                             at Lq = 77, Lk = 200 for D in {8, 16, 32, 64,
-                            128} with a batch row whose keys are all masked,
-                            and at Lq = 130, Lk = 33; f32 within 1e-5
+                            128} (online 64-key steps) with a batch row whose
+                            keys are all masked, at Lq = 130, Lk = 33 and
+                            Lq = 77, Lk = 128 (one-pass tiles), and at
+                            [4, 12, 64, 64] with leading, middle and
+                            trailing holes in the mask; f32 within 1e-5
                             absolute (exps and sums in another order), bf16
                             within 2^-6 * max|v| (p rounded to bf16 before
                             P.V, <= 2^-8 relative each, plus both outputs'
@@ -68,8 +73,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             "SQbf16" (SqSearcher's defaults, so the
                             hierarchical tournament runs): the uint8 form of
                             grouped_score_max launched once per query block
-                            for SQ8, the bf16 form for SQbf16, the f32 form
-                            for Flat; for 256 queries each top-100 against a
+                            for SQ8, the bf16 form for SQbf16 (each counted
+                            on its own search), the f32 form for Flat; for 256 queries each top-100 against a
                             plain f64 scan on the card (Flat: over the
                             corpus; SQ: the tournament's function, the 100
                             best groups by bf16(q ⊙ scale)·codes, their items
@@ -134,9 +139,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             its plain version and one PyTorch library call
                             where one computes the same function, at the
                             phase 2-7 shapes (the uint8 form on phase 3's
-                            SQ8 codes), beside the least time the card could
-                            take (the bf16 and uint8 forms at the bf16
-                            tensor-core rate: their products are bf16 x bf16); encode ms per batch of 256, texts/s
+                            SQ8 codes, the bf16 form on its bf16 corpus),
+                            beside the least time the card could take (the
+                            bf16 and uint8 forms at the bf16 tensor-core
+                            rate: their products are bf16 x bf16); encode
+                            ms per batch of 256, texts/s
                             and the device's idle share (torch.profiler),
                             and /encode request latency.
 
@@ -197,12 +204,16 @@ KERNEL_META = {
     "grouped_score_max_uint8": dict(
         route="cuda", source="recommendflow_tpu_torch/csrc/grouped_topk.cu",
         replaces="recommendflow_tpu/ops/pallas/grouped_topk.py:50-56"),
+    "grouped_score_max_bf16": dict(
+        route="cuda", source="recommendflow_tpu_torch/csrc/grouped_topk.cu",
+        replaces="recommendflow_tpu/ops/pallas/grouped_topk.py:84-87"),
 }
 # the path each kernel's launches are counted on
 KERNEL_PATH = {"gather_rows": "slice", "grouped_score_max": "slice",
                "scatter_add_rows": "train", "rowwise_adagrad_update": "train",
                "sparse_adagrad_apply": "train", "flash_attention": "encode",
-               "grouped_score_max_uint8": "sq_search"}
+               "grouped_score_max_uint8": "sq_search",
+               "grouped_score_max_bf16": "sq_search_bf16"}
 FA_F32_TOL = 1e-5
 FA_BF16_TOL = 2.0 ** -6        # times max|v|
 ENCODE_CPU_TOL = 1e-4
@@ -212,6 +223,7 @@ LR = 0.03   # the table learning rate of the bench config (default_table_lr)
 # up to ~1e-6 of their magnitude (8.5e-7 measured on the quantized-search
 # corpus, scores 90-200); within 4e-6 of max(1, |score|) is a match
 SEARCH_RTOL = 4e-6
+SCAN_REPS = 5   # timed calls of the ~56 ms plain and library scans
 K = 100
 
 
@@ -365,18 +377,20 @@ class Timer:
     def __init__(self, torch, reps: int):
         self.torch, self.reps = torch, reps
 
-    def median_ms(self, fn) -> float:
+    def median_ms(self, fn, reps: int = 0) -> float:
+        """The median of `reps` calls (default: the timer's own)."""
         torch = self.torch
+        reps = reps or self.reps
         fn(0)                                   # warm-up (and lazy load)
         torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(self.reps + 1)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
         torch.cuda._sleep(200_000_000)
         ev[0].record()
-        for i in range(self.reps):
+        for i in range(reps):
             fn(i)
             ev[i + 1].record()
         torch.cuda.synchronize()
-        t = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(self.reps))
+        t = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(reps))
         return t[len(t) // 2]
 
 
@@ -426,9 +440,10 @@ def main(argv=None) -> int:
     dev = torch.device("cpu" if rehearse else "cuda:0")
     # toy sizes for the rehearsal; full sizes on the card
     S = dict(batch=1024, n_batches=1024, q=4096, n_pad=1 << 20, d=128,
-             search_q=4096, cli_rows=4000, reps=20) if not rehearse else \
+             search_q=4096, cli_rows=4000, reps=20, wide_q=2048,
+             wide_n=1 << 16) if not rehearse else \
         dict(batch=64, n_batches=8, q=64, n_pad=1 << 13, d=128, search_q=64,
-             cli_rows=400, reps=2)
+             cli_rows=400, reps=2, wide_q=16, wide_n=1024)
     # the encoder path: BERT-Base on the card, a two-layer toy of it here
     E = dict(config=enc_syn.BERT_BASE, texts=16384, batch=256, serve_clients=8,
              serve_texts=32, latency_reps=10, cli_texts=2048) if not rehearse \
@@ -453,8 +468,20 @@ def main(argv=None) -> int:
         secs = _build.build(KERNELS)
         ptxas = {n: [ln.strip() for ln in _build.BUILD_LOGS.get(n, "").splitlines()
                      if "Used" in ln or "spill" in ln] for n in KERNELS}
+        # the bf16 and uint8 forms of grouped_score_max run on tensor cores:
+        # wgmma is HGMMA in the SASS (cuobjdump ships with nvcc)
+        cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                                 "cuobjdump")
+        require(os.path.exists(cuobjdump), f"no cuobjdump beside nvcc "
+                f"({cuobjdump}): the HGMMA check cannot run")
+        dump = subprocess.run(
+            [cuobjdump, "-sass", _build.library_path("grouped_topk")],
+            check=True, capture_output=True, text=True, timeout=300).stdout
+        hgmma = [ln.strip() for ln in dump.splitlines() if "HGMMA" in ln]
+        require(bool(hgmma), "grouped_topk: no HGMMA (wgmma) in its SASS")
+        sass = {"grouped_topk_hgmma": len(hgmma), "first": hgmma[0]}
         log("build", wall_s=time.perf_counter() - t0, per_kernel_s=secs,
-            ptxas=ptxas)
+            ptxas=ptxas, sass=sass)
 
     # --------------------------------------------- shared inputs (2-6, 10)
     bench_conf = Configuration(BENCH_CONF)
@@ -538,12 +565,46 @@ def main(argv=None) -> int:
                     f"abs diff {by_variant[name]} > 1e-4")
             del got, ref
         del variants, scale, xsq_u
-        errs["grouped_score_max"] = max(v for k, v in by_variant.items()
-                                        if not k.startswith("u8"))
+        # the tensor-core forms past the resident query tile (D above
+        # 256-320 at 256 queries a block): each ring stage carries the query
+        # rows' K-block beside the items. Scores of std ~2 keep the f32 sums
+        # of 1536 exact products inside the same atol 1e-4.
+        wide, wq, wn = {}, S["wide_q"], S["wide_n"]
+        for wd in (512, 1536):
+            wv = torch.randn((wn, wd), generator=gen, device=dev)
+            wc = torch.randint(0, 256, (wn, wd), generator=gen, device=dev,
+                               dtype=torch.uint8)
+            for name, v in ((f"bf16_d{wd}", wv.to(torch.bfloat16)),
+                            (f"u8_d{wd}", wc)):
+                wqs = torch.randn((wq, wd), generator=gen, device=dev)
+                wqs *= 2.0 / (wd * float(v.float().pow(2).mean())) ** 0.5
+                got = k_scan.grouped_score_max(wqs, v, None, group=G,
+                                               num_items=wn - 5)
+                ref = k_scan.grouped_score_max_plain(wqs, v, None, group=G,
+                                                     num_items=wn - 5)
+                sync()
+                err = float((got - ref).abs().max())
+                require(err <= 1e-4, f"grouped_score_max {name}: max abs diff "
+                        f"{err} > 1e-4")
+                by_variant[name] = err
+                # device time of the streamed form beside its bound (not on
+                # a main path; the kernels line times the main-path shape)
+                wide[name] = {
+                    "ms": Timer(torch, 5).median_ms(
+                        lambda i: k_scan.launch_grouped_score_max(
+                            wqs, v, None, group=G, num_items=wn - 5))
+                    if not rehearse else None,
+                    "bound_ms": 2.0 * wq * (wn - 5) * wd / bf16_tc * 1e3}
+                del got, ref
+            del wv, wc
+        errs["grouped_score_max"] = max(by_variant["f32_ip"],
+                                        by_variant["f32_l2"])
+        errs["grouped_score_max_bf16"] = by_variant["bf16_ip"]
         errs["grouped_score_max_uint8"] = max(by_variant["u8_ip"],
                                               by_variant["u8_l2"])
         log("grouped_score_max", q=S["q"], n_pad=S["n_pad"], d=S["d"], group=G,
-            num_items=num_items, max_abs_err=by_variant, tolerance=1e-4)
+            num_items=num_items, max_abs_err=by_variant, tolerance=1e-4,
+            wide_rows={"q": wq, "n_pad": wn, "times": wide})
 
     upd = None
     if any(p in phases for p in TABLE_PHASES) or "times" in phases:
@@ -613,13 +674,24 @@ def main(argv=None) -> int:
             cases.append(("path", *path_qkv(dtype), fa_mask))
             for b, lq, lk, d in [(3, 77, 200, 8), (3, 77, 200, 16),
                                  (3, 77, 200, 32), (3, 77, 200, 64),
-                                 (3, 77, 200, 128), (2, 130, 33, 64)]:
+                                 (3, 77, 200, 128), (2, 130, 33, 64),
+                                 (3, 77, 128, 64)]:
                 qkv = [torch.randn((b, 2, n, d), generator=gen, device=dev
                                    ).to(dtype) for n in (lq, lk, lk)]
                 m = torch.rand((b, lk), generator=gen, device=dev) < 0.7
                 m[:, 1] = True
                 m[0] = False                  # a row with every key masked
                 cases.append((f"b{b}_lq{lq}_lk{lk}_d{d}", *qkv, m))
+            # the one-pass tile at the encoder's head shape, with leading,
+            # middle and trailing holes in the key mask
+            qkv = [torch.randn((4, 12, 64, 64), generator=gen, device=dev
+                               ).to(dtype) for _ in range(3)]
+            m = torch.ones((4, 64), dtype=torch.bool, device=dev)
+            m[0, :20] = False
+            m[1, 20:40] = False
+            m[2, 40:] = False
+            m[3] = False
+            cases.append(("b4_lq64_lk64_d64_holes", *qkv, m))
         by_case = {}
         for name, q_, k_, v_, m_ in cases:
             got = k_fa.flash_attention(q_, k_, v_, m_)
@@ -675,7 +747,8 @@ def main(argv=None) -> int:
                 "grouped_score_max_uint8": by_dtype["uint8"],
                 "grouped_score_max_bf16": by_dtype["bfloat16"]}
 
-    launches = {"slice": {}, "train": {}, "sq_search": {}, "encode": {}}
+    launches = {"slice": {}, "train": {}, "sq_search": {}, "sq_search_bf16": {},
+                "encode": {}}
     model = None
     if "slice" in phases or "train" in phases:
         model, _ = build_network(bench_conf.networks["class"],
@@ -948,8 +1021,7 @@ def main(argv=None) -> int:
                                  got["grouped_score_max"] == n_blocks),
                     f"{spec}: {form} launched {got}, not once per query "
                     f"block ({n_blocks})")
-            if spec == "SQ8":
-                launches["sq_search"] = got
+            launches["sq_search" if spec == "SQ8" else "sq_search_bf16"] = got
             # the tournament's function in plain f64: the K best groups of
             # bf16(q ⊙ scale)·codes, their items rescored by q·x̂
             codes, n_items = idx._codes, idx.num_items
@@ -1385,9 +1457,9 @@ def main(argv=None) -> int:
             timer.median_ms(lambda i: k_scan.launch_grouped_score_max(
                 q, corpus, None, group=G, num_items=num_items)),
             timer.median_ms(lambda i: k_scan.grouped_score_max_plain(
-                q, corpus, None, group=G, num_items=num_items)),
+                q, corpus, None, group=G, num_items=num_items), SCAN_REPS),
             timer.median_ms(lambda i: torch.matmul(q, corpus.T).view(
-                nq, n_pad // G, G).amax(dim=-1)),
+                nq, n_pad // G, G).amax(dim=-1), SCAN_REPS),
             4 * (nq * d + n_pad * d + nq * (n_pad // G)),
             ops=2.0 * nq * num_items * d)
         # the uint8 form on phase 3's SQ8 codes; its products are bf16 x
@@ -1399,22 +1471,27 @@ def main(argv=None) -> int:
             timer.median_ms(lambda i: k_scan.launch_grouped_score_max(
                 qs_u, codes_u, None, group=G, num_items=num_items)),
             timer.median_ms(lambda i: k_scan.grouped_score_max_plain(
-                qs_u, codes_u, None, group=G, num_items=num_items)),
+                qs_u, codes_u, None, group=G, num_items=num_items), SCAN_REPS),
             timer.median_ms(lambda i: torch.matmul(qs_b, codes_f.T).view(
-                nq, n_pad // G, G).amax(dim=-1)),
+                nq, n_pad // G, G).amax(dim=-1), SCAN_REPS),
             n_pad * d + 4 * (nq * d + nq * (n_pad // G)),
             ops=2.0 * nq * num_items * d, peak=bf16_tc)
         del qs_b, codes_f
-        # kernel 5's bf16 form does the same bf16 x bf16 work
+        # kernel 5's bf16 form does the same bf16 x bf16 work on the bf16
+        # corpus; the library call multiplies the rounded queries with the
+        # widened corpus, then takes the group max
         corpus_b = corpus.to(torch.bfloat16)
-        bf16_form = {
-            "ms": timer.median_ms(lambda i: k_scan.launch_grouped_score_max(
+        q_b, corpus_bf = q.to(torch.bfloat16).float(), corpus_b.float()
+        add("grouped_score_max_bf16",
+            timer.median_ms(lambda i: k_scan.launch_grouped_score_max(
                 q, corpus_b, None, group=G, num_items=num_items)),
-            "bound_ms_tensor_core": max(
-                2.0 * nq * num_items * d / bf16_tc,
-                (2 * n_pad * d + 4 * (nq * d + nq * (n_pad // G))) / bw) * 1e3,
-            "bound_ms_fp32": 2.0 * nq * num_items * d / flops * 1e3}
-        del corpus_b
+            timer.median_ms(lambda i: k_scan.grouped_score_max_plain(
+                q, corpus_b, None, group=G, num_items=num_items), SCAN_REPS),
+            timer.median_ms(lambda i: torch.matmul(q_b, corpus_bf.T).view(
+                nq, n_pad // G, G).amax(dim=-1), SCAN_REPS),
+            2 * n_pad * d + 4 * (nq * d + nq * (n_pad // G)),
+            ops=2.0 * nq * num_items * d, peak=bf16_tc)
+        del corpus_b, q_b, corpus_bf
 
         # the table kernels on one batch's update (phases 4-6); each timed
         # call updates its table in place, as the trainer's does
@@ -1480,11 +1557,12 @@ def main(argv=None) -> int:
         zero_ms = timer.median_ms(lambda i: gd.zero_())
         log("times", card=card, peaks={"bytes_per_s": bw, "fp32_flops": flops,
                                        "bf16_tensor_core_flops": bf16_tc},
-            grouped_score_max_bf16_form=bf16_form,
             shapes={"gather_rows": {"ids": n_ids, "unique_rows": uniq},
                     "grouped_score_max": {"q": nq, "n_pad": n_pad, "d": d},
                     "grouped_score_max_uint8": {"q": nq, "n_pad": n_pad,
                                                 "d": d, "codes": "uint8"},
+                    "grouped_score_max_bf16": {"q": nq, "n_pad": n_pad,
+                                               "d": d, "corpus": "bfloat16"},
                     "flash_attention": [E["batch"], heads, 64, head_dim],
                     "table": [R, W], "update_ids": upd["n_ids"],
                     "unique_stored_rows": n_u, "touched_stored_rows": n_t},

@@ -4,8 +4,10 @@ retrieval, `m1[q, g] = max over the G items of group g of (q·v or
 
 Replaces `recommendflow_tpu/ops/pallas/grouped_topk.py:grouped_score_max`,
 with the output untransposed (`[Q, N_pad/G]`), for f32, bf16 and uint8 (SQ8
-code) corpora. The CUDA source, its bound and its design are in
-`csrc/grouped_topk.cu`.
+code) corpora. The corpus type picks the kernel: an FP32 SIMT kernel for an
+f32 corpus, a bf16 tensor-core (`wgmma`) kernel for a bf16 or uint8 corpus,
+which takes the queries as a bf16 tensor. The CUDA source,
+its bounds and its designs are in `csrc/grouped_topk.cu`.
 
 `grouped_score_max` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises. `grouped_score_max.launches` counts
@@ -90,7 +92,10 @@ def launch_grouped_score_max(queries: torch.Tensor, vecs: torch.Tensor,
         raise ValueError("sq_norms must be a float32 [N_pad] vector")
     if not 0 <= num_items <= n_pad:
         raise ValueError(f"num_items {num_items} outside [0, {n_pad}]")
-    q = _query_operand(queries, vecs).contiguous()
+    q = _query_operand(queries, vecs)
+    if vecs.dtype != torch.float32:
+        q = q.to(torch.bfloat16)      # exact: the values are bf16 already
+    q = q.contiguous()
     v = vecs.contiguous()
     sqn = sq_norms.contiguous() if sq_norms is not None else None
     nq = q.shape[0]

@@ -498,3 +498,132 @@ def test_text_encoder_service_card_matches_cpu(cuda):
     assert k.flash_attention.launches == before + 2 * 4   # 2 layers, 4 batches
     b = cpu.encode(texts, normalize=False)
     np.testing.assert_allclose(a, b, rtol=0, atol=2e-5)
+
+
+def _tc_inputs(cuda, vec_dtype, q, n_pad, d, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if vec_dtype == torch.uint8:
+        qs = torch.randn((q, d), generator=g, device=cuda) * 0.01
+        v = torch.randint(0, 256, (n_pad, d), generator=g, device=cuda,
+                          dtype=torch.uint8)
+        v[0] = 255                                 # the largest code
+    else:
+        qs = torch.randn((q, d), generator=g, device=cuda)
+        v = torch.randn((n_pad, d), generator=g, device=cuda).to(vec_dtype)
+    return qs, v
+
+
+@pytest.mark.parametrize("vec_dtype", [torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("group", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("l2", [False, True])
+@pytest.mark.parametrize("q,d", [(1, 7), (63, 40), (65, 128), (130, 129),
+                                 (130, 256)])
+def test_grouped_score_max_tensor_core_forms(cuda, vec_dtype, group, l2, q, d):
+    """The bf16 tensor-core kernel of the bf16 and uint8 corpora at ragged
+    shapes: Q not a multiple of 64, D not a multiple of 16 (and of 8), N_pad
+    not a multiple of the 128-item tile, a masked tail, every group size;
+    codes up to 255. atol 1e-4: the products are exact in f32 (queries
+    rounded to bf16 on both sides), only the sums' order and rounding
+    differ, and these scores stay below ~20."""
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk
+    n_pad = 1024 + 192
+    qs, v = _tc_inputs(cuda, vec_dtype, q, n_pad, d, seed=q * 1000 + d)
+    sqn = (v.float() ** 2).sum(1) * (1e-4 if vec_dtype == torch.uint8 else 1) \
+        if l2 else None
+    num_items = n_pad - 3 * group // 2
+    form = "uint8" if vec_dtype == torch.uint8 else "bfloat16"
+    before = dict(grouped_topk.grouped_score_max.launches_by_dtype)
+    got = grouped_topk.grouped_score_max(qs, v, sqn, group=group,
+                                         num_items=num_items)
+    ref = grouped_topk.grouped_score_max_plain(qs, v, sqn, group=group,
+                                               num_items=num_items)
+    torch.cuda.synchronize()
+    after = grouped_topk.grouped_score_max.launches_by_dtype
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == form) for k in after}
+    assert got.shape == (q, n_pad // group)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("vec_dtype", [torch.bfloat16, torch.uint8])
+def test_grouped_score_max_tensor_core_at_search_magnitudes(cuda, vec_dtype):
+    """Scores of 90-200, the magnitude of the quantized-search corpus's
+    (bf16(q ⊙ scale) · codes): the tensor cores' f32 sums against the plain
+    version's within the same atol 1e-4 (3.5 ulps of f32 at 128: the
+    products are exact, only the sums' order and rounding differ)."""
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, n_pad, d = 300, 1 << 16, 128
+    if vec_dtype == torch.uint8:
+        v = torch.randint(0, 256, (n_pad, d), generator=g, device=cuda,
+                          dtype=torch.uint8)
+        qs = torch.rand((q, d), generator=g, device=cuda) * 0.009 + 0.003
+    else:
+        v = (torch.rand((n_pad, d), generator=g, device=cuda) * 2.0
+             ).to(vec_dtype)
+        qs = torch.rand((q, d), generator=g, device=cuda) * 0.9 + 0.3
+    got = grouped_topk.grouped_score_max(qs, v, None, group=16,
+                                         num_items=n_pad - 5)
+    ref = grouped_topk.grouped_score_max_plain(qs, v, None, group=16,
+                                               num_items=n_pad - 5)
+    torch.cuda.synchronize()
+    real = ref > -1e29
+    assert 60 <= float(ref[real].min()) and float(ref.max()) <= 260
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lk", [1, 64, 128, 129, 200])
+@pytest.mark.parametrize("d", [8, 24, 64, 128])
+def test_flash_attention_kernel_key_tiles(cuda, dtype, lk, d):
+    """The one-pass tile (Lk <= 64 and <= 128) and the online 64-key steps
+    (Lk > 128) against the plain version: masks with leading, middle and
+    trailing holes (whole 64-key steps masked at Lk = 200), a batch row with
+    every key masked, Lq not a multiple of 64."""
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    g = torch.Generator(device=cuda).manual_seed(lk * 100 + d)
+    b, h, lq = 5, 3, 70
+    q, kk, v = (torch.randn((b, h, n, d), generator=g, device=cuda).to(dtype)
+                for n in (lq, lk, lk))
+    mask = torch.ones((b, lk), dtype=torch.bool, device=cuda)
+    mask[0] = False                                  # every key masked
+    mask[1, :lk // 2] = False                        # a leading hole
+    mask[2, lk // 3:2 * lk // 3] = False             # a middle hole
+    mask[3, lk // 2 + 1:] = False                    # a trailing hole
+    mask[4] = torch.rand((lk,), generator=g, device=cuda) < 0.5
+    mask[4, -1] = True
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6 * float(
+        v.float().abs().max())
+    before = k.flash_attention.launches
+    got = k.flash_attention(q, kk, v, mask)
+    ref = k.flash_attention_plain(q, kk, v, mask)
+    torch.cuda.synchronize()
+    assert k.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, lq, d)
+    assert float((got.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("vec_dtype", [torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("q,d", [(300, 512), (200, 1024), (129, 1408),
+                                 (300, 1536), (65, 1544), (130, 2052),
+                                 (65, 4096), (300, 4096)])
+def test_grouped_score_max_tensor_core_wide_rows(cuda, vec_dtype, q, d):
+    """Wide rows: the query tile stays resident while it leaves room for the
+    ring, and past that each ring stage carries its K-block of the query
+    rows, for any D (1544 and 2052 are ragged for the 16-byte copies, 2052
+    for the 64-dim K-blocks too). The queries are scaled so the scores have
+    a standard deviation of ~2: the f32 sums of up to 4096 exact products
+    then round well inside the same atol 1e-4."""
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk
+    n_pad = 512 + 64
+    qs, v = _tc_inputs(cuda, vec_dtype, q, n_pad, d, seed=d)
+    qs = qs / qs[0].norm() * 2.0 / float(v.float().pow(2).mean().sqrt())
+    before = grouped_topk.grouped_score_max.launches
+    got = grouped_topk.grouped_score_max(qs, v, None, group=8,
+                                         num_items=n_pad - 3)
+    ref = grouped_topk.grouped_score_max_plain(qs, v, None, group=8,
+                                               num_items=n_pad - 3)
+    torch.cuda.synchronize()
+    assert grouped_topk.grouped_score_max.launches == before + 1
+    assert got.shape == (q, n_pad // 8)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
