@@ -89,6 +89,7 @@ def main(argv=None):
                      ["aupr", f"{metrics['aupr']:.5f}"],
                      ["recall@precision>=0.6", f"{rec:.5f} (thr={thr:.4f})"]],
                     headers=["metric", "value"], title="Ranking evaluation")
+        print(f"auc={metrics['auc']:.5f}")
         return metrics
     raise SystemExit(f"model outputs {list(out)} — nothing evaluable")
 

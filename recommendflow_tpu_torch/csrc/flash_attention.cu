@@ -48,6 +48,9 @@
 //     is computed (two buffers). A 64-key step whose keys are all masked is
 //     skipped when the batch row has a valid key: exp(-1e9 - m) is +0 in f32
 //     once a real score sets m, and adding +0 changes no sum.
+//   * D > 128 (flash_attention_wide_kernel): the head dim in 128-wide
+//     chunks, one output chunk a block, the scores summed over every chunk;
+//     always the 64-key online steps.
 //   * at the encoder's shape a block holds 52 KB of shared memory, so four
 //     blocks (16 warps) stay resident on an SM; no atomics, so the result is
 //     deterministic; every operand is read through the strides it is given
@@ -183,14 +186,18 @@ struct Layout {                       // offsets in floats of dynamic smem
 };
 
 
-// S = Q K^T for rows 8r..8r+7 and keys c + 16j of a staged tile
-template <int DT, int KPT, int LD>
-__device__ __forceinline__ void qk(float (&s)[8][KPT], const float* Qs,
-                                   const float* Ks, int r, int c) {
+template <int KPT>
+__device__ __forceinline__ void zero_scores(float (&s)[8][KPT]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
+}
+
+// S += Q K^T for rows 8r..8r+7 and keys c + 16j of a staged tile
+template <int DT, int KPT, int LD>
+__device__ __forceinline__ void qk_add(float (&s)[8][KPT], const float* Qs,
+                                       const float* Ks, int r, int c) {
 #pragma unroll 2
   for (int d = 0; d < DT; d += 4) {
     float4 kk[KPT];
@@ -209,6 +216,14 @@ __device__ __forceinline__ void qk(float (&s)[8][KPT], const float* Qs,
       }
     }
   }
+}
+
+// S = Q K^T for rows 8r..8r+7 and keys c + 16j of a staged tile
+template <int DT, int KPT, int LD>
+__device__ __forceinline__ void qk(float (&s)[8][KPT], const float* Qs,
+                                   const float* Ks, int r, int c) {
+  zero_scores<KPT>(s);
+  qk_add<DT, KPT, LD>(s, Qs, Ks, r, c);
 }
 
 // acc += P V for rows ro*RPT.. and dims 4co..4co+3 over keys [0, nk)
@@ -451,6 +466,159 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// D > 128: the head dim in 128-wide chunks. Grid z picks the 128-dim chunk
+// of the output a block writes. Over 64-key steps with online softmax, the
+// block sums each step's scores over every chunk of q and k (staged one
+// chunk at a time, Q re-read from L2 each step), then adds P times its
+// chunk of v. Every block of a (b, h, query tile) sums the same products in
+// the same order, so the blocks' softmax weights agree bit for bit. Q, K
+// and V tiles of 64 x 128 and P over Q: 100 KB of shared memory, two
+// blocks an SM.
+constexpr int WIDE_DT = 128;
+constexpr int WIDE_BK = 64;
+constexpr int WIDE_LD = WIDE_DT + 4;
+constexpr int WIDE_LDP = WIDE_BK + 4;
+constexpr size_t WIDE_BYTES =
+    ((BQ + 2 * WIDE_BK) * WIDE_LD + WIDE_BK + 2 * BQ) * sizeof(float);
+static_assert(WIDE_LDP <= WIDE_LD, "P fits over Q");
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const uint8_t* __restrict__ mask,
+                            T* __restrict__ out, Strides st, int H, int Lq,
+                            int Lk, int D, float scale_log2, bool vec) {
+  constexpr int DT = WIDE_DT, BK = WIDE_BK, LD = WIDE_LD, LDP = WIDE_LDP;
+  constexpr int KPT = BK / 16, CG = DT / 4, RPT = BQ * CG / NT;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ps = smem;                   // over Q, once the step's scores are in
+  float* Ks = Qs + BQ * LD;
+  float* Vs = Ks + BK * LD;
+  float* valid = Vs + BK * LD;
+  float* rowc = valid + BK;
+  float* rowl = rowc + BQ;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = blockIdx.y * BQ;
+  const int oc = blockIdx.z * DT;     // the first output dim of this block
+  const int nq = min(BQ, Lq - q0);
+  const T* qb = q + b * st.q[0] + h * st.q[1] + q0 * st.q[2];
+  const T* kb = k + b * st.k[0] + h * st.k[1];
+  const T* vb = v + b * st.v[0] + h * st.v[1] + oc;
+  const uint8_t* mb = mask ? mask + b * st.mask : nullptr;
+  const int r = tid / 16, c = tid % 16;
+  const int ro = tid / CG, co = tid % CG;
+
+  float acc[RPT][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float s[8][KPT], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
+    const int nk = min(BK, Lk - k0);
+    stage<BK, DT, LD>(Vs, vb + k0 * st.v[2], st.v[2], nk, min(DT, D - oc),
+                      vec);
+    cp_async_commit();
+    stage_valid<BK>(valid, mb ? mb + k0 : nullptr, nk);
+    zero_scores<KPT>(s);
+    for (int c0 = 0; c0 < D; c0 += DT) {
+      stage<BQ, DT, LD>(Qs, qb + c0, st.q[2], nq, min(DT, D - c0), vec);
+      stage<BK, DT, LD>(Ks, kb + k0 * st.k[2] + c0, st.k[2], nk,
+                        min(DT, D - c0), vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      qk_add<DT, KPT, LD>(s, Qs, Ks, r, c);
+      __syncthreads();                // before Q and K are restaged
+    }
+    float mx[8], sum[8], corr[8];
+    mask_scale<KPT>(s, mx, valid, nk, c, scale_log2);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float m_new = fmaxf(m[i], mx[i]);   // finite: nk >= 1
+      corr[i] = exp2f(m[i] - m_new);            // 0 at the first step
+      m[i] = m_new;
+    }
+    exp_rows<KPT>(s, m, sum);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) l[i] = l[i] * corr[i] + sum[i];
+    store_p<T, KPT, LDP>(Ps, s, r, c);
+    if (c == 0)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) rowc[8 * r + i] = corr[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const float f = rowc[ro * RPT + i];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= f;
+    }
+    pv<RPT, LDP, LD>(acc, Ps, Vs, ro, co, nk);
+    __syncthreads();   // before the next step rewrites P, V and the mask
+  }
+  if (c == 0)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) rowl[8 * r + i] = l[i];
+  __syncthreads();
+
+  const int d = oc + 4 * co;
+  if (d >= D) return;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = ro * RPT + i;
+    const int qi = q0 + row;
+    if (qi >= Lq) continue;
+    const float inv = 1.f / rowl[row];
+    T* o = out + b * st.o[0] + h * st.o[1] + qi * st.o[2] + d;
+    if constexpr (sizeof(T) == 4) {
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = make_float4(
+            acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+        continue;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (d + e < D) o[e] = from_f32<T>(acc[i][e] * inv);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const uint8_t* mask, void* out, const Strides& st,
+                        int B, int H, int Lq, int Lk, int D, bool vec,
+                        cudaStream_t stream) {
+  const int64_t bh = (int64_t)B * H;
+  const int q_tiles = (Lq + BQ - 1) / BQ;
+  const int chunks = (D + WIDE_DT - 1) / WIDE_DT;
+  if (bh > 0x7fffffffLL || q_tiles > 65535 || chunks > 65535)
+    return cudaErrorInvalidConfiguration;
+  auto kernel = flash_attention_wide_kernel<T>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WIDE_BYTES);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  dim3 grid((unsigned)bh, (unsigned)q_tiles, (unsigned)chunks);
+  kernel<<<grid, NT, WIDE_BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), mask, static_cast<T*>(out), st, H, Lq, Lk, D,
+      LOG2E / sqrtf((float)D), vec);
+  return cudaGetLastError();
+}
+
 template <int DT, int BK, bool ONLINE, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* mask, void* out, const Strides& st, int B,
@@ -495,7 +663,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   if (D <= 32) return by_keys<32, T>(q, k, v, mask, out, st, B, H, Lq, Lk, D, vec, s);
   if (D <= 64) return by_keys<64, T>(q, k, v, mask, out, st, B, H, Lq, Lk, D, vec, s);
   if (D <= 128) return by_keys<128, T>(q, k, v, mask, out, st, B, H, Lq, Lk, D, vec, s);
-  return cudaErrorInvalidValue;
+  return launch_wide<T>(q, k, v, mask, out, st, B, H, Lq, Lk, D, vec, s);
 }
 
 }  // namespace
@@ -504,15 +672,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // (dtype 0) or all bf16 (1), read and written through `strides`: 13 int64
 // values, the batch, head and row strides of q, k, v and out in elements
 // (each last dim contiguous), then the batch stride of `mask`, a [B, Lk]
-// bool key mask (1 = valid) or null (every key valid). 1 <= D <= 128,
-// Lk >= 1. Rows are copied 16 bytes at a time when every f32 operand's base
-// is 16-byte aligned and D and every stride are multiples of 4. Returns a
-// cudaError_t.
+// bool key mask (1 = valid) or null (every key valid). D >= 1 (above 128
+// the head dim runs in 128-wide chunks), Lk >= 1. Rows are copied 16 bytes
+// at a time when every f32 operand's base is 16-byte aligned and D and
+// every stride are multiples of 4. Returns a cudaError_t.
 extern "C" int rf_flash_attention(const void* q, const void* k, const void* v,
                                   const uint8_t* mask, void* out, int dtype,
                                   const int64_t* strides, int B, int H, int Lq,
                                   int Lk, int D, void* stream) {
-  if (D < 1 || D > 128 || Lk < 1 || B < 0 || H < 0 || Lq < 0)
+  if (D < 1 || Lk < 1 || B < 0 || H < 0 || Lq < 0)
     return (int)cudaErrorInvalidValue;
   if ((int64_t)B * H == 0 || Lq == 0) return (int)cudaSuccess;
   Strides st;

@@ -9,8 +9,13 @@ The flax tree (as host numpy) maps onto a model's state dict one to one:
   batch_stats/<m>/BatchNorm_i/{mean, var}
                                         -> <m>.BatchNorm_i.{running_mean, running_var}
 
-and, for the text encoder (`ops/transformer.py:TextEncoder`), Dense layers
-named after their role and LayerNorm and Embed modules:
+Every `kernel` leaf is a Dense layer's, whatever its owner is called
+(`Dense_i`, or a role: `head`, `gate{t}`, `linear`, `q`, ...): a 2-D kernel
+becomes a transposed `weight`, and Mmoe's stacked [E, in, out] expert
+kernels (flax `nn.vmap`) a `weight` of the same layout. Bare parameters
+(`w{i}`, `b{i}`, `field_latents`, `pos_emb`) keep their names and layouts.
+For the text encoder (`ops/transformer.py:TextEncoder`), LayerNorm and
+Embed modules:
 
   params/.../mha/{q,k,v,out}/kernel     -> ....mha.{q,k,v,out}.weight (transposed)
   params/.../{emb_ln,ln1,ln2}/{scale, bias}
@@ -43,7 +48,7 @@ and the dense leaves' Adam moments):
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -102,16 +107,15 @@ def unflatten(flat: Mapping[Tuple[str, ...], Any]) -> Tree:
     return tree
 
 
-def _leaf_names(owner: str) -> Optional[Dict[str, str]]:
+def _leaf_names(owner: str) -> Dict[str, str]:
     """flax leaf name -> torch name in the params of a module named `owner`
-    (BatchNorm aside); None where the names are the same."""
-    if owner.startswith("Dense") or owner in ("q", "k", "v", "out"):
-        return _DENSE
+    (BatchNorm aside): LayerNorm and Embed modules by name, a Dense layer
+    (a `kernel` leaf) under any other."""
     if owner.startswith("LayerNorm") or owner in ("emb_ln", "ln1", "ln2"):
         return _LAYER_NORM
     if owner.startswith("Embed") or owner in ("tok_emb", "seg_emb"):
         return _EMBED
-    return None
+    return _DENSE
 
 
 def _torch_key(path: Tuple[str, ...]) -> str:
@@ -122,7 +126,7 @@ def _torch_key(path: Tuple[str, ...]) -> str:
     elif collection != "params":
         raise KeyError(f"no state-dict counterpart for {'/'.join(path)}")
     else:
-        leaf = (_leaf_names(owner) or {}).get(leaf, leaf)
+        leaf = _leaf_names(owner).get(leaf, leaf)
     return ".".join(mods + [leaf])
 
 
@@ -153,9 +157,8 @@ def jax_from_variables(state: Mapping[str, torch.Tensor],
             collection, name = inv_bn[leaf]
             flat[(collection, *mods, name)] = arr
             continue
-        names = _leaf_names(owner) or {}
-        name = {v: k for k, v in names.items()}.get(leaf, leaf)
-        if name == "kernel":
+        name = {v: k for k, v in _leaf_names(owner).items()}.get(leaf, leaf)
+        if name == "kernel" and arr.ndim == 2:
             arr = np.ascontiguousarray(arr.T)
         flat[("params", *mods, name)] = arr
     return unflatten(flat)

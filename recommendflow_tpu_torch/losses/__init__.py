@@ -1,2 +1,4 @@
 """Loss functions: the matching (in-batch negative sampling) family in
-`match.py`. Configs name them by dotted path (utils/str_parser.py:str2fn)."""
+`match.py`, classification in `classify.py`, regression in `regression.py`
+and the sample-weighted variants in `weighted.py`. Configs name them by
+dotted path (utils/str_parser.py:str2fn)."""

@@ -25,6 +25,7 @@ from recommendflow_tpu_torch.config.configuration import Configuration
 from recommendflow_tpu_torch.data.schema import BatchSchema, compile_schema
 from recommendflow_tpu_torch.ops.embedding import (concat_tower, embed_batch,
                                                    init_group_table)
+from recommendflow_tpu_torch.ops.mlp import ExpertsDense
 from recommendflow_tpu_torch.utils.str_parser import str2fn
 
 Batch = Dict[str, torch.Tensor]
@@ -73,12 +74,12 @@ class FeatureEmbedder(nn.Module):
 
 
 def init_dense_(module: nn.Module, generator: torch.Generator) -> None:
-    """flax's Dense defaults on every Linear below `module`: kernel
-    lecun_normal (normal truncated at two standard deviations, rescaled to
-    variance 1/fan_in), bias zero. BatchNorm keeps scale 1, bias 0, mean 0,
-    var 1."""
+    """flax's Dense defaults on every Linear (and batched ExpertsDense)
+    below `module`: kernel lecun_normal (normal truncated at two standard
+    deviations, rescaled to variance 1/fan_in), bias zero. BatchNorm keeps
+    scale 1, bias 0, mean 0, var 1."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, (nn.Linear, ExpertsDense)):
             std = math.sqrt(1.0 / m.in_features) / .87962566103423978
             with torch.no_grad():
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,

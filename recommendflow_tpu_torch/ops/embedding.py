@@ -265,7 +265,9 @@ def embed_batch(params: Dict[str, torch.Tensor], schema: BatchSchema,
 
     Features sharing a dim group are gathered in ONE fused gather per group
     (ids concatenated along a flat axis, results split back). `params` maps
-    'dim{d}' to the stored tables."""
+    'dim{d}' to the stored tables. Token and bert sequences are left to the
+    text encoders that own them, as in the JAX package; an image slot raises
+    (no image encoder yet)."""
     out: Dict[str, torch.Tensor] = {}
     slots = _slots(schema, tower)
     for slot in slots:
@@ -273,10 +275,10 @@ def embed_batch(params: Dict[str, torch.Tensor], schema: BatchSchema,
             continue
         if slot.kind in ("dense", "embedding"):
             out[slot.name] = batch[slot.name].float()
-        elif slot.kind in ("image", "token", "bert"):
+        elif slot.kind == "image":
             raise NotImplementedError(
-                f"feature '{slot.name}' ({slot.kind}) needs an encoder that "
-                f"recommendflow_tpu_torch does not have yet")
+                f"feature '{slot.name}' (image) needs the image encoder, "
+                f"which recommendflow_tpu_torch does not have yet")
 
     for dim, group_slots in _sparse_by_dim(slots, exclude).items():
         group = schema.groups[dim]

@@ -120,6 +120,54 @@ class MLP(nn.Module):
         return x
 
 
+class ExpertsDense(nn.Module):
+    """E Dense layers as one batched product: weight [E, in, out] (the flax
+    `nn.vmap` kernel layout, not transposed), bias [E, out]. Takes [B, in]
+    (every expert sees the same input) or [B, E, in] -> [B, E, out]."""
+
+    def __init__(self, num_experts: int, in_features: int, out_features: int,
+                 device=None):
+        super().__init__()
+        self.in_features = in_features
+        self.weight = nn.Parameter(torch.empty(
+            (num_experts, in_features, out_features), device=device))
+        self.bias = nn.Parameter(torch.zeros((num_experts, out_features),
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        eq = "bi,eio->beo" if x.dim() == 2 else "bei,eio->beo"
+        return torch.einsum(eq, x, self.weight) + self.bias
+
+
+class ExpertsMLP(nn.Module):
+    """E parallel expert MLPs evaluated as one batched computation: every
+    parameter carries a leading expert axis [E, ...] (the JAX package's
+    `nn.vmap` of `MLP`, whose tree is `experts/Dense_i/{kernel, bias}`), so
+    the experts run as single batched products, not a loop of E modules.
+    Output: [B, E, units[-1]]."""
+
+    def __init__(self, num_experts: int, in_features: int,
+                 units: Sequence[int], dropout: float = 0.0,
+                 activation: str = "relu", device=None):
+        super().__init__()
+        self.act = get_activation(activation)
+        self.drop = nn.Dropout(dropout) if dropout > 0 else None
+        self.experts = nn.Module()
+        self.units = list(units)
+        width = in_features
+        for i, out in enumerate(self.units):
+            self.experts.add_module(f"Dense_{i}", ExpertsDense(
+                num_experts, width, out, device=device))
+            width = out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(len(self.units)):
+            x = self.act(getattr(self.experts, f"Dense_{i}")(x))
+            if self.drop is not None:
+                x = self.drop(x)
+        return x
+
+
 def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True),

@@ -184,10 +184,13 @@ def count_syncs(fn):
     return out
 
 
-def profile_training(model, dev, steps: int):
-    """One JSON line per table-update mode: wall and device time per step
-    under torch.profiler, idle share, the port's kernels' launches and
-    device time by kernel."""
+def profile_training(model, dev, steps: int, batch: int = 1024,
+                     modes=(("split", "dense"), ("split", "sparse_set"),
+                            ("dense", "dense"))):
+    """Per (table_update, split_strategy) mode: wall and device time per
+    step over `steps` steps of `batch` rows under torch.profiler, idle
+    share, the port's kernels' launches and device time by kernel. Returns
+    the modes' stats."""
     from torch.profiler import ProfilerActivity, profile
 
     from recommendflow_tpu_torch.data.synthetic import synthetic_batch
@@ -198,11 +201,10 @@ def profile_training(model, dev, steps: int):
                 "scatter_add_rows": embedding_bag.scatter_add_rows,
                 "rowwise_adagrad_update": table_update.rowwise_adagrad_update,
                 "sparse_adagrad_apply": sparse_apply.sparse_adagrad_apply}
-    batches = [synthetic_batch(model.schema, 1024, seed=50_000 + i)
+    batches = [synthetic_batch(model.schema, batch, seed=50_000 + i)
                for i in range(steps + 2)]
-    state = None
-    for mode, strategy in (("split", "dense"), ("split", "sparse_set"),
-                           ("dense", "dense")):
+    state, out = None, []
+    for mode, strategy in modes:
         trainer = Trainer(model, table_update=mode, split_strategy=strategy,
                           device=dev)
         if state is None:
@@ -239,9 +241,9 @@ def profile_training(model, dev, steps: int):
                                         for n in counters},
                      host_syncs_per_step=syncs,
                      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        print(json.dumps({"part": f"train/{stats['mode']}", **stats}),
-              flush=True)
+        out.append(stats)
         del on_dev
+    return out
 
 
 def profile_encode(service, texts, batches: int):
@@ -380,7 +382,9 @@ def main(argv=None) -> int:
     print(json.dumps({"part": "search", **stats}), flush=True)
     del searcher, out, corpus
     torch.cuda.empty_cache()
-    profile_training(model, dev, args.train_steps)
+    for stats in profile_training(model, dev, args.train_steps):
+        print(json.dumps({"part": f"train/{stats['mode']}", **stats}),
+              flush=True)
     del model
     torch.cuda.empty_cache()
     profile_encoder(dev, args.encode_batches)

@@ -19,17 +19,18 @@ A step runs eagerly on the card:
      rowwise_adagrad_update on the table gradient that take_rows' backward
      built with scatter_add_rows.
 
-The JAX trainer picks each split table's strategy from TPU cost constants;
-here it is an argument (default "dense"), until the card has a cost model of
-its own. Metrics stay on the device; `fit` reads them back once an epoch
-(and every `log_every` steps).
+Each split table's strategy comes from this card's cost model
+(`split_strategy="auto"`, the default; `plan_strategy`), as the JAX trainer
+picks it from its TPU constants, or is given. Metrics stay on the device;
+`fit` reads them back once an epoch (and every `log_every` steps).
 """
 from __future__ import annotations
 
 import re
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Union
+from typing import (Any, Dict, Iterable, List, Mapping, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -52,6 +53,19 @@ from recommendflow_tpu_torch.utils.tables import print_table
 log = get_logger("recflow.trainer")
 
 _TABLE = re.compile(r"table_dim(\d+)$")
+
+# The split planner's cost model: one table update by split_table_update,
+# the sort and duplicate sum included. "dense" takes DENSE_S_PER_BYTE per
+# byte of the table (a zero-filled gradient written, then swept beside the
+# accumulator); "sparse_set" takes SPARSE_S_PER_ID per id of the batch
+# (duplicates counted) plus SPARSE_FIXED_S. Fitted on an NVIDIA H100 80GB
+# HBM3 at 700.00 W to CUDA-event times of both strategies (chip_smoke.py's
+# ranking phase; PERF.md §6): "dense" 1.042 ms over the 770 MB bench_recall
+# table and 2.303 ms over the 2.5 GB bench_ranking table; "sparse_set"
+# 0.503, 0.610 and 0.372 ms at 87,040, 106,496 and 53,248 ids.
+DENSE_S_PER_BYTE = 9.6e-13
+SPARSE_S_PER_ID = 4.4e-9
+SPARSE_FIXED_S = 1.3e-4
 
 
 def to_device(batch: Mapping[str, np.ndarray], device: torch.device
@@ -87,6 +101,19 @@ def predict(model: torch.nn.Module, dataset: Iterable[Mapping[str, np.ndarray]],
     return {k: torch.cat(v).cpu().numpy() for k, v in chunks.items()}
 
 
+def split_costs(table_bytes: int, n_ids: int) -> Tuple[float, float]:
+    """(dense, sparse_set) seconds of one update of a table of `table_bytes`
+    that a batch touches at `n_ids` ids, by the cost model."""
+    return (DENSE_S_PER_BYTE * table_bytes,
+            SPARSE_S_PER_ID * n_ids + SPARSE_FIXED_S)
+
+
+def plan_strategy(table_bytes: int, n_ids: int) -> str:
+    """The split strategy that `split_costs` finds cheaper."""
+    dense, sparse = split_costs(table_bytes, n_ids)
+    return "sparse_set" if sparse < dense else "dense"
+
+
 @dataclass
 class TrainState:
     """What a step reads and updates: the model (weights, BatchNorm
@@ -109,14 +136,16 @@ class Trainer:
 
     table_update: "auto" (split when the model has row_injection, else
     dense), "split" or "dense"; "sparse" (the JAX package's touched-row
-    update from a dense table gradient) is not ported. split_strategy: one of
-    "dense", "sparse_set", "sparse", for every split table. device defaults to "cuda" and raises without a card
-    unless "cpu" is asked for; the model must live there."""
+    update from a dense table gradient) is not ported. split_strategy:
+    "auto" (each split table's by `plan_strategy`, from the sample batch's
+    ids) or one of "dense", "sparse_set", "sparse" for every split table.
+    device defaults to "cuda" and raises without a card unless "cpu" is
+    asked for; the model must live there."""
 
     def __init__(self, model: torch.nn.Module, learning_rate: float = 1e-3,
                  table_learning_rate: Optional[float] = None,
                  table_update: str = "auto",
-                 split_strategy: str = "dense",
+                 split_strategy: str = "auto",
                  device: Union[str, torch.device] = "cuda", seed: int = 0):
         if table_update == "sparse":
             raise NotImplementedError(
@@ -125,9 +154,9 @@ class Trainer:
         if table_update not in ("auto", "split", "dense"):
             raise ValueError(f"table_update must be auto|split|dense, got "
                              f"'{table_update}'")
-        if split_strategy not in STRATEGIES:
-            raise ValueError(f"split_strategy {split_strategy!r}: one of "
-                             f"{STRATEGIES}")
+        if split_strategy != "auto" and split_strategy not in STRATEGIES:
+            raise ValueError(f"split_strategy {split_strategy!r}: auto or one "
+                             f"of {STRATEGIES}")
         self.device = resolve_device(device)
         if any(p.device.type != self.device.type for p in model.parameters()):
             raise ValueError(f"the model's parameters are not on {self.device}")
@@ -160,14 +189,30 @@ class Trainer:
         need an accumulator."""
         schema = self.model.schema
         tables = table_params(self.model)
-        in_batch = {schema.slots[n].dim for n in schema.order
-                    if schema.slots[n].kind == "sparse" and n in sample_batch}
+        n_ids: Dict[int, int] = {}
+        for name in schema.order:
+            slot = schema.slots[name]
+            if slot.kind == "sparse" and name in sample_batch:
+                n_ids[slot.dim] = n_ids.get(slot.dim, 0) + \
+                    int(np.prod(sample_batch[name].shape))
         self._planned = True
         if not self.split:
             self._split_dims = {}
             return sorted(tables)
-        self._split_dims = {d: self.split_strategy for d in sorted(tables)
-                            if d in in_batch}
+        self._split_dims = {}
+        for d in sorted(tables):
+            if d not in n_ids:
+                continue
+            strategy = self.split_strategy
+            if strategy == "auto":
+                nbytes = tables[d].numel() * tables[d].element_size()
+                strategy = plan_strategy(nbytes, n_ids[d])
+                dense, sparse = split_costs(nbytes, n_ids[d])
+                log.info("split planner: dim%d (%.1f MB, %d ids) -> %s "
+                         "(cost model: dense %.3f ms, sparse_set %.3f ms)", d,
+                         nbytes / 1e6, n_ids[d], strategy, dense * 1e3,
+                         sparse * 1e3)
+            self._split_dims[d] = strategy
         return list(self._split_dims)
 
     def init_state(self, sample_batch: Mapping[str, Any]) -> TrainState:

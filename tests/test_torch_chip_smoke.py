@@ -1,9 +1,9 @@
 """chip_smoke.py's contract where there is no card: it exits non-zero and
 prints no result, alone in a directory as well, and its CPU rehearsal drives
 every phase at toy sizes through the plain versions (the serving slice, the
-training run of the three table-update modes, the quantized and approximate
-searchers, the text encoder's encode and HTTP serving, the text search, the
-CLIs)."""
+training run of the three table-update modes, the ranking runs of Dcn and
+the other ranking models, the quantized and approximate searchers, the text
+encoder's encode and HTTP serving, the text search, the CLIs)."""
 import json
 import os
 import shutil
@@ -16,8 +16,8 @@ SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
 # every phase but the build and the timings, which need the card
 REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
-             "flash_attention", "slice", "train", "sq_search", "ann", "encode",
-             "serve", "text_search", "cli")
+             "flash_attention", "slice", "train", "ranking", "ranking_zoo",
+             "sq_search", "ann", "encode", "serve", "text_search", "cli")
 
 
 def _run(args, cwd):
@@ -65,9 +65,29 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
     assert all(k.startswith("val_") for k in train["recall"])
     assert phases["cli"]["predict_vs_model"] <= 1e-5
     assert phases["cli"]["trained_predict_vs_model"] <= 1e-5
+    rcli = phases["cli"]["ranking_cli"]
+    assert 0 <= rcli["train"]["val_auc"] <= 1 and 0 <= rcli["evaluate"]["auc"] <= 1
+    assert rcli["predict_vs_model"] <= 1e-5
+    rank = phases["ranking"]
+    assert sorted(rank["runs"]) == ["auto", "auto_zipf1.2", "dense",
+                                    "sparse_set", "warm"]
+    assert rank["runs"]["auto"]["split"] == {"dim16": "dense"}   # a small table
+    assert rank["runs"]["sparse_set"]["split"] == {"dim16": "sparse_set"}
+    assert all(0 <= r["val_auc"] <= 1 for r in rank["runs"].values())
+    assert rank["cpu_vs_card_logit"] <= rank["cpu_tolerance"]
+    assert sorted(rank["update_check"]) == [
+        f"{s}/zipf{z}/dim16" for s in ("dense", "sparse_set")
+        for z in (0.0, 1.2)]
+    assert all(c["p_ulps"] == 0 for c in rank["update_check"].values())
+    zoo = phases["ranking_zoo"]["models"]
+    assert sorted(zoo) == ["Cold", "DeepFm", "Escm2-dr", "Escm2-ips", "Essm",
+                           "Mmoe", "XDeepFm"]
+    assert "feature_gates" in zoo["Cold"]["outputs"]
+    assert {"score0", "score1", "label1"} <= set(zoo["Mmoe"]["outputs"])
     fa = phases["flash_attention"]["cases"]
     assert {k.split("/")[0] for k in fa} == {"float32", "bfloat16"}
     assert any("lk200_d128" in k for k in fa)
+    assert any("lk200_d256" in k for k in fa)
     assert all(c["max_abs_err"] <= c["tolerance"] for c in fa.values())
     enc = phases["encode"]
     assert enc["batches"] == 8 and enc["cache_equal"]

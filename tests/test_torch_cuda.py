@@ -20,8 +20,11 @@ magnitude of the two values.
 flash_attention agrees with its plain version within 1e-5 absolute in f32
 (exps and sums in another order) and within 2^-6 * max|v| in bf16 (p is
 rounded to bf16 before P.V, as the Pallas kernel does, and both outputs
-round once more); the text encoder on the card agrees with its CPU run
-within 2e-5 and launches flash_attention once per layer and batch.
+round once more), at head dims past 128 too; the text encoder on the card
+agrees with its CPU run within 2e-5 and launches flash_attention once per
+layer and batch. The ranking models' eval outputs agree with their CPU runs
+within 1e-5, and a Dcn split step's table update equals the plain update
+(p bitwise, acc rtol 1e-6).
 
 Training steps on the card agree with the same steps on the CPU; the GEMMs
 and the duplicate sums add in another order on each device, so gradients
@@ -393,6 +396,98 @@ def test_train_steps_card_match_cpu(cuda, mode, strategy, table_dtype, steps):
             assert torch.equal(gs[k], cs[k]), k
 
 
+@pytest.mark.parametrize("zipf", [0.0, 1.2])
+@pytest.mark.parametrize("strategy", ["dense", "sparse_set"])
+def test_dcn_split_step_matches_the_plain_update(cuda, strategy, zipf):
+    """A Dcn step on the split path (demo_ranking, bf16 tables): its table
+    update redone through the plain versions on the same row gradients,
+    both under torch's deterministic algorithms (the duplicate sums then
+    add in one order): p bitwise, acc within rtol 1e-6, untouched rows
+    bitwise; the loss within rtol 1e-5 of the same step on the CPU."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.ranking.dcn import Dcn
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as kr
+    from recommendflow_tpu_torch.ops.cuda import sparse_apply as ks
+    from recommendflow_tpu_torch.ops.cuda import table_update as kt
+    from recommendflow_tpu_torch.train.trainer import Trainer, table_params
+    conf = Configuration(f"{tp.ROOT}/conf/demo_ranking.yaml")
+    conf.networks["table_dtype"] = "bfloat16"
+    gpu = Dcn(conf, dropout=0.0, device=cuda, seed=5)
+    cpu = Dcn(conf, dropout=0.0, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    batch = synthetic_batch(gpu.schema, 256, seed=9, zipf=zipf)
+    t = Trainer(gpu, table_update="split", split_strategy=strategy, device=cuda)
+    state = t.init_state(batch)
+    (d,) = t._split_dims
+    p = table_params(gpu)[d].detach()
+    acc = state.table_acc[f"dim{d}"]
+    p0, acc0 = p.clone(), acc.clone()
+    counts = [f.launches for f in (kr.scatter_add_rows, kt.rowwise_adagrad_update,
+                                   ks.sparse_adagrad_apply)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss, _, phys, rows = t._forward_backward(t._put(batch))
+        state.optimizer.step()
+        t._apply_table_updates(state, phys, rows)
+        p_k, acc_k = p.clone(), acc.clone()
+        p.copy_(p0), acc.copy_(acc0)
+        s_, order = torch.sort(phys[d], stable=True)
+        summed, uid, _, n_valid = kr.segment_row_grads(
+            s_, rows[d].grad[order].float(), num_rows=p.shape[0])
+        if strategy == "dense":
+            gd = torch.zeros_like(p)
+            kr.scatter_add_rows_plain(uid, summed, gd, n_valid)
+            kt.rowwise_adagrad_update_plain(p, acc, gd, lr=t.table_lr)
+        else:
+            ks.sparse_adagrad_apply_plain(p, acc, uid, summed, n_valid,
+                                          lr=t.table_lr)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launched = [f.launches - c for f, c in zip(
+        (kr.scatter_add_rows, kt.rowwise_adagrad_update, ks.sparse_adagrad_apply),
+        counts)]
+    assert launched == ([0, 0, 1] if strategy == "sparse_set" else [1, 1, 0])
+    touched = torch.zeros(p.shape[0], dtype=torch.bool, device=cuda)
+    touched[phys[d].long()] = True
+    assert _ulps(p_k, p) == 0
+    torch.testing.assert_close(acc_k, acc, rtol=1e-6, atol=0)
+    assert torch.equal(p_k[~touched].view(torch.int16),
+                       p0[~touched].view(torch.int16))
+    assert torch.equal(acc_k[~touched], acc0[~touched])
+    tc = Trainer(cpu, table_update="split", split_strategy=strategy, device="cpu")
+    cpu_loss = tc.train_step(tc.init_state(batch), batch)[1]["loss"]
+    np.testing.assert_allclose(float(loss.detach()), float(cpu_loss),
+                               rtol=1e-5)
+
+
+def test_ranking_models_card_match_cpu(cuda):
+    """Every ranking model of the port on the card: eval outputs within
+    1e-5 of the same weights on the CPU (f32 GEMMs, TF32 off, summed in
+    another order), gather_rows launched once a batch."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag
+    conf = Configuration(f"{tp.ROOT}/conf/demo_ranking.yaml")
+    for name in ("dnn", "dcn", "deepfm", "xdeepfm", "cold", "mmoe", "essm",
+                 "escm2"):
+        gpu, _ = build_network(name, {"conf": conf, "device": cuda, "seed": 2})
+        cpu, _ = build_network(name, {"conf": conf, "device": "cpu"})
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        batch = synthetic_batch(gpu.schema, 128, seed=1)
+        before = embedding_bag.gather_rows.launches
+        with torch.no_grad():
+            a = gpu({k: v.to(cuda) for k, v in tp.to_torch(batch).items()})
+            b = cpu(tp.to_torch(batch))
+        assert embedding_bag.gather_rows.launches == before + 1, name
+        assert sorted(a) == sorted(b), name
+        for k in b:
+            np.testing.assert_allclose(a[k].cpu().numpy(), b[k].numpy(),
+                                       rtol=0, atol=1e-5, err_msg=f"{name} {k}")
+
+
 FA_CASES = [  # (batch, heads, Lq, Lk, head dim): the chip_smoke.py shapes
     (256, 12, 64, 64, 64), (3, 2, 77, 200, 8), (3, 2, 77, 200, 16),
     (3, 2, 77, 200, 32), (3, 2, 77, 200, 64), (3, 2, 77, 200, 128),
@@ -445,8 +540,8 @@ def test_flash_attention_refusals(cuda):
     q = torch.randn((2, 2, 8, 16), device=cuda)
     m = torch.ones((2, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        big = torch.randn((1, 1, 4, 129), device=cuda)
-        k.flash_attention(big, big, big)
+        empty = torch.randn((1, 1, 4, 0), device=cuda)
+        k.flash_attention(empty, empty, empty)
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
         k.flash_attention(q, q.to(torch.bfloat16), q)
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
@@ -459,6 +554,60 @@ def test_flash_attention_refusals(cuda):
         k.flash_attention(q, q, q, m.int())
     with pytest.raises(ValueError, match="CUDA tensors"):
         k.flash_attention(q, q, q.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lk", [33, 200])
+@pytest.mark.parametrize("d", [129, 192, 256, 512])
+def test_flash_attention_wide_heads(cuda, dtype, lk, d):
+    """Head dims past 128 run in 128-wide chunks (the last one ragged at 129
+    and 192): the strided split_heads views, with and without a key mask
+    (leading and trailing holes, a row with every key masked), the one-tile
+    key count 33 and 200 keys over four 64-key steps, at the kernel's own
+    tolerances."""
+    from recommendflow_tpu_torch.ops.attention import split_heads
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    g = torch.Generator(device=cuda).manual_seed(lk * 1000 + d)
+    b, h, lq = 3, 2, 70
+    q, kk, v = (split_heads(torch.randn((b, n, h * d), generator=g,
+                                        device=cuda).to(dtype), h)
+                for n in (lq, lk, lk))
+    mask = torch.ones((b, lk), dtype=torch.bool, device=cuda)
+    mask[0] = False                                  # every key masked
+    mask[1, :lk // 2] = False                        # a leading hole
+    mask[2, lk // 2 + 1:] = False                    # a trailing hole
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6 * float(
+        v.float().abs().max())
+    for m in (mask, None):
+        before = k.flash_attention.launches
+        got = k.flash_attention(q, kk, v, m)
+        ref = k.flash_attention_plain(q, kk, v, m)
+        torch.cuda.synchronize()
+        assert k.flash_attention.launches == before + 1
+        assert got.dtype == dtype and got.shape == (b, h, lq, d)
+        assert float((got.float() - ref.float()).abs().max()) <= tol
+
+
+def test_text_encoder_wide_head_card_matches_cpu(cuda):
+    """One head of 256 dims, which the JAX package takes: the encoder on the
+    card within 1e-4 of the CPU."""
+    from recommendflow_tpu_torch.encoder import TextEncoderService, Tokenizer
+    from recommendflow_tpu_torch.encoder.synthetic import make_texts, make_vocab
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    vocab = make_vocab(3000)
+    tok = Tokenizer({t: i for i, t in enumerate(vocab)})
+    sizes = dict(max_len=64, batch_size=32, model_dim=256, num_layers=2,
+                 num_heads=1, ffn_hidden=512)
+    gpu = TextEncoderService(tok, device=cuda, seed=3, **sizes)
+    cpu = TextEncoderService(tok, device="cpu", **sizes)
+    cpu.model.load_state_dict({n: t.cpu() for n, t in
+                               gpu.model.state_dict().items()})
+    texts = make_texts(40, seed=4)
+    before = k.flash_attention.launches
+    a = gpu.encode(texts, normalize=False)
+    assert k.flash_attention.launches == before + 2 * 2   # 2 layers, 2 batches
+    b = cpu.encode(texts, normalize=False)
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
 
 
 def test_sdpa_on_the_card_launches_the_kernel(cuda):
