@@ -9,9 +9,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             source, started together) and reports build time
                             and ptxas usage (registers, spills), and the
                             HGMMA (wgmma) count in grouped_topk's SASS;
-  2. gather_rows            against its plain version on the bench_recall
-                            dim-64 table (770 MB bf16) at one batch's 87,040
-                            ids: bitwise;
+  2. gather_rows            against its plain version, bitwise, at every
+                            shape the main paths launch it at: the
+                            bench_recall dim-64 table (770 MB bf16, 128-byte
+                            rows) at one batch's 87,040 ids, the
+                            bench_ranking dim-32 table (2.5 GB bf16, 64-byte
+                            rows) at one batch of 2048's 106,496 ids, uniform
+                            and Zipf(1.2), and both tables in their stored
+                            layout (512-byte rows) at those ids' stored rows
+                            (the trainer's split gather);
   3. grouped_score_max      against its plain version at Q = 4096,
                             N_pad = 1,048,576, D = 128: f32 ip and l2 (FP32
                             SIMT kernel), the bf16 corpus and the uint8 form
@@ -84,6 +90,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             within 1e-4 of the same weights on the CPU;
                             one more step per strategy on uniform and Zipf
                             ids redone through the plain versions (as in 9);
+                            one predict batch's embed pass and one split-
+                            path gather under CUDA's sync debug mode
+                            ("error"): the host never waits on the card in
+                            either (the ids were checked on the host);
                             both strategies' split_table_update timed at the
                             bench_recall (770 MB, 87,040 ids) and
                             bench_ranking (2.5 GB, 106,496 ids) shapes and at
@@ -175,14 +185,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             its plain version and one PyTorch library call
                             where one computes the same function, at the
                             phase 2-7 shapes and kernels 1-4 also at the
-                            bench_ranking shape (the uint8 form on phase 3's
+                            bench_ranking shape (gather_rows at every phase-2
+                            shape, each also as the mean of 20 calls between
+                            two events, beside its bound, its share of the
+                            bound, index_select and its launches at that row
+                            width; the uint8 form on phase 3's
                             SQ8 codes, the bf16 form on its bf16 corpus),
                             beside the least time the card could take (the
                             bf16 and uint8 forms at the bf16 tensor-core
                             rate: their products are bf16 x bf16); encode
                             ms per batch of 256, texts/s
                             and the device's idle share (torch.profiler),
-                            and /encode request latency.
+                            and /encode request latency; the timing's own
+                            floor (two events alone, an empty kernel).
 
 Then the kernels' JSON line, the card's name and power limit, and the last
 line {"ok": true, "device": {...}}. With no CUDA device it exits non-zero and
@@ -433,7 +448,8 @@ class Timer:
         self.torch, self.reps = torch, reps
 
     def median_ms(self, fn, reps: int = 0) -> float:
-        """The median of `reps` calls (default: the timer's own)."""
+        """The median of `reps` calls (default: the timer's own), each
+        between two events."""
         torch = self.torch
         reps = reps or self.reps
         fn(0)                                   # warm-up (and lazy load)
@@ -447,6 +463,22 @@ class Timer:
         torch.cuda.synchronize()
         t = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(reps))
         return t[len(t) // 2]
+
+    def batched_ms(self, fn) -> float:
+        """The mean of the timer's reps calls between two events: no event
+        recorded between the calls (two events alone take ~3 us on the
+        H100)."""
+        torch = self.torch
+        fn(0)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(200_000_000)
+        start.record()
+        for i in range(self.reps):
+            fn(i)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / self.reps
 
 
 def main(argv=None) -> int:
@@ -555,9 +587,10 @@ def main(argv=None) -> int:
     stored = table64.view(-1, 256)
     R = stored.shape[0]
 
-    def ids_for(seed, sch=schema, dim=64, rows=rows64, batch=S["batch"]):
+    def ids_for(seed, sch=schema, dim=64, rows=rows64, batch=S["batch"],
+                zipf=0.0):
         """One synthetic batch's logical ids of the dim group (fused)."""
-        b = synthetic_batch(sch, batch, seed=seed)
+        b = synthetic_batch(sch, batch, seed=seed, zipf=zipf)
         ids = fused_group_ids(sch, {k: torch.from_numpy(v) for k, v in
                                     b.items()})[dim].reshape(-1)
         return (ids % rows).to(torch.int32).to(dev)
@@ -579,17 +612,50 @@ def main(argv=None) -> int:
         return dict(uid=uid, summed=summed, n_valid=n_valid, touched=touched,
                     n_ids=sid.numel())
 
+    # the bench_ranking shape: the dim-32 group of 39,000,052 logical rows
+    # stored bf16 as [R/8, 256], batches of 2048
+    rk_schema = compile_schema(Configuration(RANK_CONF).features)
+    rank = dict(sch=rk_schema, dim=32, batch=2048 if not rehearse else 64,
+                rows=-(-rk_schema.groups[32].total_rows // 1024) * 1024
+                if not rehearse else 8192)
+
+    def ranking_table():
+        return torch.randn((rank["rows"], 32), generator=gen, device=dev
+                           ).to(torch.bfloat16)
+
+    def gather_cases(table32, seed, n=1):
+        """Kernel 1's shapes on the main paths, each (table, [ids] x n):
+        serving (logical rows) and the trainer's split gather (stored rows)
+        of both bench tables, and ranking serving on Zipf(1.2) ids."""
+        rec = [ids_for(seed + i) for i in range(n)]
+        rk = [ids_for(seed + i, **rank) for i in range(n)]
+        return {"recall_serving": (table64, rec),
+                "recall_split": (stored, [i // 4 for i in rec]),
+                "ranking_serving": (table32, rk),
+                "ranking_serving_zipf1.2": (table32, [ids_for(
+                    seed + 500 + i, zipf=1.2, **rank) for i in range(n)]),
+                "ranking_split": (table32.view(-1, 256),
+                                  [i // 8 for i in rk])}
+
     errs = {}
     if "gather_rows" in phases or "times" in phases:
-        ids0 = ids_for(10_000)
-        got = k_rows.gather_rows(table64, ids0)
-        ref = k_rows.gather_rows_plain(table64, ids0)
-        sync()
-        same = bool(torch.equal(got.view(torch.int16), ref.view(torch.int16)))
-        require(same, "gather_rows differs from its plain version")
-        errs["gather_rows"] = float((got.float() - ref.float()).abs().max())
-        log("gather_rows", table_mb=table64.numel() * 2 / 1e6, ids=ids0.numel(),
-            bitwise_equal=same, max_abs_err=errs["gather_rows"])
+        table32 = ranking_table()
+        held = {}
+        for name, (table_, (ids_,)) in gather_cases(table32, 10_000).items():
+            got = k_rows.gather_rows(table_, ids_)
+            ref = k_rows.gather_rows_plain(table_, ids_)
+            sync()
+            same = bool(torch.equal(got.view(torch.int16),
+                                    ref.view(torch.int16)))
+            require(same, f"gather_rows differs from its plain version at "
+                    f"{name}")
+            held[name] = {"table": list(table_.shape), "ids": ids_.numel(),
+                          "max_abs_err": float((got.float() - ref.float()
+                                                ).abs().max())}
+        errs["gather_rows"] = max(h["max_abs_err"] for h in held.values())
+        del table32, got, ref
+        log("gather_rows", shapes=held, bitwise_equal=True,
+            max_abs_err=errs["gather_rows"])
 
     q = torch.nn.functional.normalize(
         torch.randn((S["q"], S["d"]), generator=gen, device=dev), dim=1)
@@ -856,19 +922,23 @@ def main(argv=None) -> int:
                 "flash_attention": k_fa.flash_attention}
 
     by_dtype = k_scan.grouped_score_max.launches_by_dtype
+    by_row_bytes = k_rows.gather_rows.launches_by_row_bytes
 
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
         for form in by_dtype:
             by_dtype[form] = 0
+        by_row_bytes.clear()
 
     def read_counts():
-        """Launches by kernel, the uint8 form of grouped_score_max apart
-        (it is counted in grouped_score_max's total as well)."""
+        """Launches by kernel, the uint8 and bf16 forms of grouped_score_max
+        apart (they are counted in grouped_score_max's total as well), and
+        gather_rows' launches by row width in bytes."""
         return {**{name: fn.launches for name, fn in counters.items()},
                 "grouped_score_max_uint8": by_dtype["uint8"],
-                "grouped_score_max_bf16": by_dtype["bfloat16"]}
+                "grouped_score_max_bf16": by_dtype["bfloat16"],
+                "gather_rows_by_row_bytes": dict(by_row_bytes)}
 
     launches = {"slice": {}, "train": {}, "ranking": {}, "sq_search": {},
                 "sq_search_bf16": {}, "encode": {}}
@@ -1104,6 +1174,33 @@ def main(argv=None) -> int:
                 update_check.update(check_split_step(
                     model, state, rbatches(1, zipf)[0], strategy,
                     f"{strategy}/zipf{zipf}"))
+        # the host never waits on the card in one predict batch's embed
+        # pass or in the split path's gather: both launch gather_rows
+        # unchecked (the host checked the batch's ids); CUDA's sync debug
+        # mode raises on any wait. A warm-up pass first copies the slot
+        # offsets to the card (once).
+        sb = to_device(rbatches(1)[0], dev)
+        strainer = Trainer(model, split_strategy="sparse_set", device=dev,
+                           seed=0)
+        strainer.plan(sb)
+        model.eval()
+        no_wait = {"embed_pass": lambda: model.embedder(sb),
+                   "split_gather": lambda: strainer.split_rows(sb)}
+        with torch.no_grad():
+            for what, fn in no_wait.items():
+                fn()
+                sync()
+                if not rehearse:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    fn()
+                except RuntimeError as e:
+                    raise RuntimeError(f"ranking {what} made the host wait "
+                                       f"on the card: {e}") from e
+                finally:
+                    if not rehearse:
+                        torch.cuda.set_sync_debug_mode("default")
+        del sb, strainer
         # the planner's cost model: both strategies' split_table_update (the
         # sort and duplicate sum included) at the bench_recall and the
         # bench_ranking shapes, and the ranking table at half a batch's ids
@@ -1174,7 +1271,7 @@ def main(argv=None) -> int:
             dropout=float(model.deep.drop.p) if model.deep.drop else 0.0,
             runs=per_run, launches=launches["ranking"],
             update_check=update_check, planner=planner, profiled=profiled,
-            peak_mem_gb=peak_gb)
+            host_waits={what: 0 for what in no_wait}, peak_mem_gb=peak_gb)
         del model, state, trainer, eval_ds, rtable
         if not rehearse:
             torch.cuda.empty_cache()
@@ -1748,7 +1845,8 @@ def main(argv=None) -> int:
         timer = Timer(torch, S["reps"])
         row = {}
 
-        def add(name, ms, plain_ms, library_ms, bytes_, ops=0.0, peak=None):
+        def add(name, ms, plain_ms, library_ms, bytes_, ops=0.0, peak=None,
+                **extra):
             t_bytes, t_ops = bytes_ / bw, ops / (peak or flops)
             kernels.append(dict(
                 name=name, **KERNEL_META[name],
@@ -1757,30 +1855,19 @@ def main(argv=None) -> int:
                 max_abs_err=errs.get(name), ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="operations" if t_ops > t_bytes else "bytes",
-                library_ms=library_ms))
+                library_ms=library_ms, **extra))
             row[name] = {"bytes": bytes_, "ops": ops}
 
-        def table_kernel_times(table_l, stored_, upd_, acc_, gd_, ids_reps):
-            """Kernels 1-4 at one table's shape: gather_rows on one batch's
-            ids per timed call, the update kernels on one batch's update
-            (each timed call updates its table in place, as the trainer's
-            does). {name: (ms, plain ms, library ms or None, bytes)}."""
-            n_ids = ids_reps[0].numel()
-            uniq = torch.unique(ids_reps[0]).numel()
-            row_b = table_l.shape[1] * table_l.element_size()
-            out = {"gather_rows": (
-                timer.median_ms(lambda i: k_rows.launch_gather_rows(
-                    table_l, ids_reps[i], check_ids=False)),
-                timer.median_ms(lambda i: k_rows.gather_rows_plain(
-                    table_l, ids_reps[i])),
-                timer.median_ms(lambda i: torch.index_select(
-                    table_l, 0, ids_reps[i])),
-                uniq * row_b + n_ids * row_b + n_ids * 4)}
+        def table_kernel_times(stored_, upd_, acc_, gd_):
+            """Kernels 2-4 at one table's shape, on one batch's update (each
+            timed call updates its table in place, as the trainer's does).
+            {name: (ms, plain ms, library ms or None, bytes)}."""
             u, sm, nv = upd_["uid"], upd_["summed"], upd_["n_valid"]
             n_u = int(nv)
             n_t = int(upd_["touched"].sum())
             R_, W = stored_.shape
             uv, smv = u[:n_u].long(), sm[:n_u]
+            out = {}
             out["scatter_add_rows"] = (
                 timer.median_ms(lambda i: k_rows.scatter_add_rows(u, sm, gd_,
                                                                   nv)),
@@ -1806,23 +1893,53 @@ def main(argv=None) -> int:
                     p_t, a_t, u, sm, nv, lr=LR)),
                 None,
                 n_u * (4 + W * 4 + 2 * W * 2 + 2 * 4) + 4)
-            return out, {"ids": n_ids, "unique_rows": uniq, "table": [R_, W],
-                         "unique_stored_rows": n_u, "touched_stored_rows": n_t}
+            return out, {"table": [R_, W], "unique_stored_rows": n_u,
+                         "touched_stored_rows": n_t}
 
-        # the bench_recall shape (phases 2, 4-6): the kernels line
-        recall_times, recall_shape = table_kernel_times(
-            table64, stored, upd, acc0, gd,
-            [ids_for(20_000 + i) for i in range(S["reps"])])
-        for name in ("gather_rows", "scatter_add_rows",
-                     "rowwise_adagrad_update", "sparse_adagrad_apply"):
+        # kernel 1 at every phase-2 shape, one batch's ids a timed call: the
+        # median of single calls between two events (as every kernel here)
+        # and the mean of reps calls between two events; its launches at
+        # that row width on the path that runs the shape
+        table32 = ranking_table()
+        shape_path = {"recall_serving": "slice", "recall_split": "train",
+                      "ranking_serving": "ranking",
+                      "ranking_serving_zipf1.2": "ranking",
+                      "ranking_split": "ranking"}
+        gather_times = {}
+        for name, (table_, ids_) in gather_cases(table32, 20_000,
+                                                 S["reps"]).items():
+            row_b = table_.shape[1] * table_.element_size()
+            n_ids, uniq = ids_[0].numel(), torch.unique(ids_[0]).numel()
+            nbytes = uniq * row_b + n_ids * row_b + n_ids * 4
+            call = (lambda i, t=table_, x=ids_: k_rows.launch_gather_rows(
+                t, x[i], check_ids=False))
+            ms = timer.median_ms(call)
+            batched = timer.batched_ms(call)
+            bound = nbytes / bw * 1e3
+            gather_times[name] = {
+                "table": list(table_.shape), "row_bytes": row_b,
+                "ids": n_ids, "unique_rows": uniq, "bytes": nbytes,
+                "ms": ms, "batched_ms": batched, "bound_ms": bound,
+                "bound_by": "bytes", "share_of_bound": bound / ms,
+                "share_of_bound_batched": bound / batched,
+                "plain_ms": timer.median_ms(
+                    lambda i, t=table_, x=ids_: k_rows.gather_rows_plain(
+                        t, x[i])),
+                "library_ms": timer.median_ms(
+                    lambda i, t=table_, x=ids_: torch.index_select(
+                        t, 0, x[i])),
+                "launches": launches[shape_path[name]].get(
+                    "gather_rows_by_row_bytes", {}).get(row_b, 0)}
+        rs = gather_times["recall_serving"]
+        add("gather_rows", rs["ms"], rs["plain_ms"], rs["library_ms"],
+            rs["bytes"], shapes=gather_times)
+        # kernels 2-4 at the bench_recall shape (phases 4-6): the kernels
+        # line
+        recall_times, recall_shape = table_kernel_times(stored, upd, acc0, gd)
+        for name in ("scatter_add_rows", "rowwise_adagrad_update",
+                     "sparse_adagrad_apply"):
             add(name, *recall_times[name])
-        # the bench_ranking shape: the dim-32 group of 39,000,052 logical
-        # rows stored bf16 as [R/8, 256] and batches of 2048
-        rk_schema = compile_schema(Configuration(RANK_CONF).features)
-        rank = dict(sch=rk_schema, dim=32, batch=2048, rows=-(
-            -rk_schema.groups[32].total_rows // 1024) * 1024)
-        table32 = torch.randn((rank["rows"], 32), generator=gen, device=dev
-                              ).to(torch.bfloat16)
+        # and at the bench_ranking shape
         stored32 = table32.view(-1, 256)
         upd32 = update_inputs(10_003, **rank)
         gd32 = torch.zeros_like(stored32)
@@ -1830,9 +1947,8 @@ def main(argv=None) -> int:
                                 upd32["n_valid"])
         acc32 = torch.rand((stored32.shape[0], 1), generator=gen,
                            device=dev) + 0.1
-        rank_times, rank_shape = table_kernel_times(
-            table32, stored32, upd32, acc32, gd32,
-            [ids_for(21_000 + i, **rank) for i in range(S["reps"])])
+        rank_times, rank_shape = table_kernel_times(stored32, upd32, acc32,
+                                                    gd32)
         ranking_shape = {"shape": rank_shape, **{
             name: {"ms": ms, "plain_ms": plain, "library_ms": lib,
                    "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes",
@@ -1913,10 +2029,16 @@ def main(argv=None) -> int:
                 "per_batch_wall_ms", "per_batch_device_ms", "idle_share",
                 "texts_per_s", "top_ms", "port_kernels")}}
         zero_ms = timer.median_ms(lambda i: gd.zero_())
+        # the timing's own floor: two events with nothing between them, and
+        # a kernel that does nothing (a zero-cycle spin), timed as above
+        floor = {"events_ms": timer.median_ms(lambda i: None),
+                 "empty_kernel_ms": timer.median_ms(
+                     lambda i: torch.cuda._sleep(0)),
+                 "empty_kernel_batched_ms": timer.batched_ms(
+                     lambda i: torch.cuda._sleep(0))}
         log("times", card=card, peaks={"bytes_per_s": bw, "fp32_flops": flops,
                                        "bf16_tensor_core_flops": bf16_tc},
-            shapes={"gather_rows": {k: recall_shape[k] for k in
-                                    ("ids", "unique_rows")},
+            shapes={"gather_rows": gather_times,
                     "grouped_score_max": {"q": nq, "n_pad": n_pad, "d": d},
                     "grouped_score_max_uint8": {"q": nq, "n_pad": n_pad,
                                                 "d": d, "codes": "uint8"},
@@ -1927,6 +2049,7 @@ def main(argv=None) -> int:
                     **{k: recall_shape[k] for k in (
                         "table", "unique_stored_rows", "touched_stored_rows")}},
             work=row, ranking_shape=ranking_shape, zero_fill_ms=zero_ms,
+            timing_floor=floor,
             zero_fill_bound_ms=stored.numel() * 2 / bw * 1e3,
             library_ms_note={"rowwise_adagrad_update": "no single PyTorch call",
                              "sparse_adagrad_apply": "no single PyTorch call",

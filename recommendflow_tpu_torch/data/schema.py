@@ -25,7 +25,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -291,6 +291,39 @@ def compile_schema(features: Features) -> BatchSchema:
         groups[dim] = TableGroup(dim=dim, tables=tuple(tables),
                                  offsets=tuple(offsets), total_rows=acc)
     return BatchSchema(slots=slots, order=order, label_names=label_names, groups=groups)
+
+
+def check_batch_ids(schema: BatchSchema, batch: Mapping[str, Any]
+                    ) -> Mapping[str, Any]:
+    """Raise IndexError, naming the feature and the id, if a sparse slot's
+    ids leave [0, num_rows) of its own table; return the batch unchanged.
+
+    Runs on the host while the batch is still numpy (or CPU tensors), in the
+    trainer's prefetch thread, so that the embedding gather on the card never
+    reads ids back to check them. Where the JAX package's take fills a row
+    with NaN (an id past the stacked table) or wraps (a negative id), or
+    reads the next table's row (an id past its own table), the port
+    raises. One maximum a slot over the slots' ids viewed as unsigned (a
+    negative id reads as a huge one), in one numpy call: the check shares
+    the interpreter with the thread that drives the card."""
+    ids = [(slot, np.asarray(batch[slot.name]).reshape(-1))
+           for slot in schema.sparse_slots() if slot.name in batch]
+    ids = [(slot, a) for slot, a in ids if a.size]
+    if not ids:
+        return batch
+    flat = np.concatenate([a for _, a in ids])
+    if not np.issubdtype(flat.dtype, np.integer):
+        raise TypeError(f"sparse ids must be integers, got {flat.dtype}")
+    unsigned = flat.view(np.dtype(f"u{flat.itemsize}"))
+    starts = np.cumsum([0] + [a.size for _, a in ids[:-1]])
+    rows = np.array([slot.num_rows for slot, _ in ids], dtype=unsigned.dtype)
+    over = np.flatnonzero(np.maximum.reduceat(unsigned, starts) >= rows)
+    if over.size:
+        slot, a = ids[over[0]]
+        bad = int(a[(a < 0) | (a >= slot.num_rows)][0])
+        raise IndexError(f"feature '{slot.name}': id {bad} outside its "
+                         f"table's {slot.num_rows} rows")
+    return batch
 
 
 @lru_cache(maxsize=16)

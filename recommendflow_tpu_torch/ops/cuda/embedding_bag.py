@@ -2,7 +2,13 @@
 
   * `gather_rows`: `out[n] = table[ids[n]]`. Replaces
     `recommendflow_tpu/ops/pallas/embedding_bag.py:gather_rows` (and the XLA
-    take the JAX package runs in its place under `ops/embedding.py`).
+    take the JAX package runs in its place under `ops/embedding.py`). The
+    kernel asserts on the card for an id outside [0, R) before it reads the
+    row. A direct call also checks the ids' range on the host first
+    (IndexError), which makes the host wait for the card; the model paths
+    pass `check_ids=False`, because the host checked every batch's ids
+    before they were copied (`data/schema.py:check_batch_ids`), where the
+    JAX package's take fills a NaN row or wraps.
   * `scatter_add_rows`: `table[ids[n]] += grads[n]` for the first `n_valid`
     unique ids, summed in f32 and rounded once to the table's dtype. Replaces
     `recommendflow_tpu/ops/pallas/embedding_bag.py:scatter_add_rows` (and the
@@ -12,7 +18,8 @@
 
 The CUDA source, the bounds and the designs are in `csrc/embedding_bag.cu`.
 Each wrapper takes its plain version for CPU tensors only; for CUDA tensors it
-launches the kernel or raises. `<wrapper>.launches` counts launches.
+launches the kernel or raises. `<wrapper>.launches` counts launches,
+`gather_rows.launches_by_row_bytes` the same launches by row width.
 """
 from __future__ import annotations
 
@@ -37,8 +44,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.rf_gather_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                        ctypes.c_void_p, ctypes.c_int64,
-                                       ctypes.c_int64, ctypes.c_int,
-                                       ctypes.c_void_p]
+                                       ctypes.c_int64, ctypes.c_int64,
+                                       ctypes.c_int, ctypes.c_void_p]
         lib.rf_gather_rows.restype = ctypes.c_int
         lib.rf_scatter_add_rows.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -97,13 +104,27 @@ def valid_prefix(n_valid: Optional[torch.Tensor], n: int) -> int:
     return n if n_valid is None else min(int(n_valid.reshape(-1)[0]), n)
 
 
+def check_id_range(ids: torch.Tensor, rows: int) -> None:
+    """IndexError unless every id lies in [0, rows). On a card the host
+    waits for the ids' min and max."""
+    if ids.numel() == 0:
+        return
+    lo, hi = torch.aminmax(ids)
+    lo, hi = torch.stack([lo, hi]).tolist()
+    if lo < 0 or hi >= rows:
+        raise IndexError(f"gather_rows: ids span [{lo}, {hi}] outside "
+                         f"the table's {rows} rows")
+
+
 def launch_gather_rows(table: torch.Tensor, ids: torch.Tensor,
                        check_ids: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel on `table [R, W]` and `ids [N] int32`.
 
     Raises on anything the kernel does not take: non-CUDA or mixed devices,
     a non-contiguous table, ids that are not a contiguous int32 vector, and
-    (with check_ids) ids outside [0, R)."""
+    (with check_ids) ids outside [0, R), before anything is launched.
+    Without check_ids the host does not wait: the kernel itself stops with
+    a device-side assert at an id outside [0, R), before reading its row."""
     if table.device.type != "cuda" or ids.device != table.device:
         raise ValueError(f"gather_rows kernel needs CUDA tensors on one "
                          f"device (table {table.device}, ids {ids.device})")
@@ -119,30 +140,35 @@ def launch_gather_rows(table: torch.Tensor, ids: torch.Tensor,
     if ids.shape[0] == 0:
         return out
     if check_ids:
-        lo, hi = torch.aminmax(ids)
-        lo, hi = torch.stack([lo, hi]).tolist()
-        if lo < 0 or hi >= rows:
-            raise IndexError(f"gather_rows: ids span [{lo}, {hi}] outside "
-                             f"the table's {rows} rows")
+        check_id_range(ids, rows)
     row_bytes = width * table.element_size()
     unit = _word_bytes(row_bytes, table.data_ptr(), out.data_ptr())
     lib = _lib()
     rc = lib.rf_gather_rows(table.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                            ids.shape[0], row_bytes, unit,
+                            ids.shape[0], row_bytes, rows, unit,
                             torch.cuda.current_stream(table.device).cuda_stream)
     _build.check(lib, rc, "gather_rows")
     gather_rows.launches += 1
+    by_width = gather_rows.launches_by_row_bytes
+    by_width[row_bytes] = by_width.get(row_bytes, 0) + 1
     return out
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table [R, W] (any dtype), ids [N] int -> [N, W] rows, bit-exact."""
+def gather_rows(table: torch.Tensor, ids: torch.Tensor,
+                check_ids: bool = True) -> torch.Tensor:
+    """table [R, W] (any dtype), ids [N] int -> [N, W] rows, bit-exact.
+    An id outside [0, R) raises IndexError on the CPU. On a card, check_ids
+    raises it before the launch (the host waits for the check); off where
+    the ids were checked already, the kernel's own device-side assert is the
+    only check."""
     if table.device.type == "cpu" and ids.device.type == "cpu":
+        check_id_range(ids, table.shape[0])
         return gather_rows_plain(table, ids)
-    return launch_gather_rows(table, ids)
+    return launch_gather_rows(table, ids, check_ids=check_ids)
 
 
 gather_rows.launches = 0
+gather_rows.launches_by_row_bytes = {}
 
 
 def segment_row_grads(s: torch.Tensor, gs: torch.Tensor, *, num_rows: int

@@ -99,13 +99,17 @@ class _TakeRows(torch.autograd.Function):
     (sorted, in f32, fixed size, the unique count kept on the device) and
     scatter-adds them into a zero table with scatter_add_rows, rounding once
     to the table's dtype. The JAX backward adds the duplicates one by one in
-    the table's dtype."""
+    the table's dtype. The host does not check the ids' range here: the
+    embed pass's global ids are in range once the host has checked the
+    batch (`data/schema.py:check_batch_ids`), so the host never waits here;
+    on a card the kernel's device-side assert still stops an id outside the
+    table (on the CPU it raises IndexError)."""
 
     @staticmethod
     def forward(ctx, table, ids):
         ctx.save_for_backward(ids)
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
-        return gather_rows(table, ids)
+        return gather_rows(table, ids, check_ids=False)
 
     @staticmethod
     def backward(ctx, g):
@@ -121,8 +125,9 @@ class _TakeRows(torch.autograd.Function):
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """`table[ids]` for table [R, W] and flat int32 ids [N], differentiable
-    in table: its gradient is a dense [R, W] table of table's dtype."""
+    """`table[ids]` for table [R, W] and flat int32 ids [N] in [0, R) (no
+    host check on a card: see _TakeRows), differentiable in table: its
+    gradient is a dense [R, W] table of table's dtype."""
     return _TakeRows.apply(table, ids)
 
 

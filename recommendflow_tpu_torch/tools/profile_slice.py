@@ -159,8 +159,9 @@ class LaunchRecorder:
             if calls:
                 # no id range check (a host read) inside a timed call
                 extra = {"check_ids": False} if name == "gather_rows" else {}
-                ms = [median_ms(lambda c=c: c[0](*c[1], **c[2], **extra),
-                                reps=10) for c in calls]
+                ms = [median_ms(
+                    lambda c=c: c[0](*c[1], **{**c[2], **extra}), reps=10)
+                    for c in calls]
                 out[name] = (self.KERNELS[name][2], sum(ms) / len(ms))
         return out
 

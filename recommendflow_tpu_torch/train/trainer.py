@@ -23,19 +23,28 @@ Each split table's strategy comes from this card's cost model
 (`split_strategy="auto"`, the default; `plan_strategy`), as the JAX trainer
 picks it from its TPU constants, or is given. Metrics stay on the device;
 `fit` reads them back once an epoch (and every `log_every` steps).
+
+Every host batch's sparse ids are checked against their tables on the host
+(`data.schema.check_batch_ids`, IndexError), in the prefetch thread for
+`fit`, `evaluate` and `predict`, before the batch is copied to the card; the
+gathers on the card then launch without a host check, so the host never
+waits for them (the kernel's device-side assert still stops an id outside
+its stacked table, in a batch that was put on the card by the caller).
 """
 from __future__ import annotations
 
+import functools
 import re
 import time
 from dataclasses import dataclass
-from typing import (Any, Dict, Iterable, List, Mapping, Optional, Tuple,
-                    Union)
+from typing import (Any, Dict, Iterable, Iterator, List, Mapping, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
 from recommendflow_tpu_torch.data.pipeline import prefetch
+from recommendflow_tpu_torch.data.schema import check_batch_ids
 from recommendflow_tpu_torch.device import resolve_device
 from recommendflow_tpu_torch.ops.cuda.embedding_bag import gather_rows
 from recommendflow_tpu_torch.ops.cuda.table_update import rowwise_adagrad_update
@@ -81,20 +90,41 @@ def to_device(batch: Mapping[str, np.ndarray], device: torch.device
     return out
 
 
+def check_host_batch(schema, batch: Mapping[str, Any]) -> Mapping[str, Any]:
+    """`check_batch_ids` on a host batch (numpy arrays or CPU tensors); a
+    batch with tensors on a card is not read back (that would make the host
+    wait): there only gather_rows' device-side assert stops an id outside
+    its stacked table, and an id past its own table but inside the stacked
+    one reads the next table's row, as in the JAX package."""
+    if not any(isinstance(v, torch.Tensor) and v.device.type != "cpu"
+               for v in batch.values()):
+        check_batch_ids(schema, batch)
+    return batch
+
+
+def checked_batches(model: torch.nn.Module,
+                    batches: Iterable[Mapping[str, Any]]
+                    ) -> Iterator[Mapping[str, Any]]:
+    """`batches`, each checked by `check_host_batch` against the model's
+    tables as it is drawn: inside prefetch's worker thread when prefetch
+    draws them."""
+    return map(functools.partial(check_host_batch, model.schema), batches)
+
+
 def predict(model: torch.nn.Module, dataset: Iterable[Mapping[str, np.ndarray]],
             device: Union[str, torch.device] = "cuda") -> Dict[str, np.ndarray]:
     """Stacked model outputs over a dataset of host batches, as numpy.
 
     The model runs in eval mode under no_grad on `device` (default "cuda";
     raises without a card unless "cpu" is asked for). Host batches are
-    prepared in a background thread (data.pipeline.prefetch) while the card
-    runs; outputs stay on the device until the end, so the host does not
-    wait on the card batch by batch."""
+    prepared and their ids checked (IndexError) in a background thread
+    (data.pipeline.prefetch) while the card runs; outputs stay on the device
+    until the end, so the host does not wait on the card batch by batch."""
     dev = resolve_device(device)
     model.eval()
     chunks: Dict[str, List[torch.Tensor]] = {}
     with torch.no_grad():
-        for batch in prefetch(iter(dataset)):
+        for batch in prefetch(checked_batches(model, dataset)):
             out = model(to_device(batch, dev))
             for k, v in out.items():
                 chunks.setdefault(k, []).append(v)
@@ -177,7 +207,12 @@ class Trainer:
         self.control: Dict[str, Any] = {"stop": False, "lr_scale": 1.0}
 
     # ------------------------------------------------------------- state
-    def _put(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    def _put(self, batch: Mapping[str, Any], check: bool = True
+             ) -> Dict[str, torch.Tensor]:
+        """The batch on the trainer's device, its ids checked first by
+        `check_host_batch` unless `check` is off (prefetch checked them)."""
+        if check:
+            check_host_batch(self.model.schema, batch)
         if all(isinstance(v, torch.Tensor) for v in batch.values()):
             return {k: v.to(self.device, non_blocking=True)
                     for k, v in batch.items()}
@@ -269,22 +304,32 @@ class Trainer:
         model = self.model
         model.train()
         model.zero_grad(set_to_none=True)
-        phys: Dict[int, torch.Tensor] = {}
-        rows: Dict[int, torch.Tensor] = {}
-        b = batch
-        if self._split_dims:
-            gids = fused_group_ids(model.schema, batch)
-            tables = table_params(model)
-            b = dict(batch)
-            for d in self._split_dims:
-                if d in gids:
-                    t = tables[d].detach()
-                    pid = physical_ids(t, d, gids[d]).to(torch.int32).contiguous()
-                    r = gather_rows(t, pid).requires_grad_()
-                    phys[d], rows[d], b[rows_key(d)] = pid, r, r
-        loss, aux = model(b)
+        phys, rows = self.split_rows(batch)
+        loss, aux = model({**batch,
+                           **{rows_key(d): r for d, r in rows.items()}})
         loss.backward()
         return loss, aux, phys, rows
+
+    def split_rows(self, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[Dict[int, torch.Tensor], Dict[int, torch.Tensor]]:
+        """The split path's gather, outside autograd: per split table d, the
+        stored-row ids of the batch's fused ids (phys[d], int32) and those
+        rows (rows[d], requiring grad). The ids are in range by construction
+        once the batch's ids were checked, so the gather launches without
+        the host check and the host does not wait."""
+        phys: Dict[int, torch.Tensor] = {}
+        rows: Dict[int, torch.Tensor] = {}
+        if not self._split_dims:
+            return phys, rows
+        gids = fused_group_ids(self.model.schema, batch)
+        tables = table_params(self.model)
+        for d in self._split_dims:
+            if d in gids:
+                t = tables[d].detach()
+                pid = physical_ids(t, d, gids[d]).to(torch.int32).contiguous()
+                phys[d] = pid
+                rows[d] = gather_rows(t, pid, check_ids=False).requires_grad_()
+        return phys, rows
 
     def _apply_table_updates(self, state: TrainState,
                              phys: Dict[int, torch.Tensor],
@@ -308,8 +353,12 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch: Mapping[str, Any]):
         """One step, in place on `state`. Returns (state, metrics) with the
-        metrics as device scalars."""
-        loss, aux, phys, rows = self._forward_backward(self._put(batch))
+        metrics as device scalars. A host batch's ids are checked first."""
+        return self._step(state, self._put(batch))
+
+    def _step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        """train_step on a batch that is on the device already."""
+        loss, aux, phys, rows = self._forward_backward(batch)
         state.optimizer.step()
         self._apply_table_updates(state, phys, rows)
         state.step += 1
@@ -337,8 +386,8 @@ class Trainer:
         losses, scores, labels = [], [], []
         model.eval()
         with torch.no_grad():
-            for batch in prefetch(iter(dataset)):
-                out = model(self._put(batch))
+            for batch in prefetch(checked_batches(model, dataset)):
+                out = model(self._put(batch, check=False))
                 if "user" in out and "ad" in out:
                     y, u, a = out["label"], out["user"], out["ad"]
                     if loss_fn is not None:
@@ -408,8 +457,9 @@ class Trainer:
             t0 = time.perf_counter()
             n_steps, n_examples = 0, 0
             running: Dict[str, torch.Tensor] = {}
-            for batch in prefetch(raw):
-                state, metrics = self.train_step(state, batch)
+            for batch in prefetch(checked_batches(self.model, raw)):
+                state, metrics = self._step(state, self._put(batch,
+                                                             check=False))
                 n_steps += 1
                 n_examples += len(next(iter(batch.values())))
                 for k, v in metrics.items():

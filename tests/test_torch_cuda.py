@@ -5,7 +5,9 @@ needed there, so conftest.py is skipped):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-gather_rows and scatter_add_rows must equal their plain versions bitwise;
+gather_rows and scatter_add_rows must equal their plain versions bitwise,
+and gather_rows stops with a device-side assert at an id outside its table
+when the host does not check;
 grouped_score_max agrees to atol 1e-4 (f32 sums in another order), in its
 f32, bf16 and uint8 forms; the SQ, IVF and PQ searchers on the card agree
 with their CPU runs to 1e-4;
@@ -43,6 +45,11 @@ differ in their last bits:
     gradient is at the level of the summation noise takes a step of another
     size or sign on each device.
 """
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -61,26 +68,154 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,width", [
-    (torch.float32, 16), (torch.float32, 64), (torch.float32, 3),
-    (torch.bfloat16, 64), (torch.bfloat16, 32), (torch.float16, 5),
-    (torch.bfloat16, 256)])
-def test_gather_rows_kernel_bitwise(cuda, dtype, width):
+# 64-, 128- and 512-byte rows in bf16 and f32 (16-byte words), f32 width 3
+# and fp16 width 5 (4- and 2-byte words)
+GATHER_WIDTHS = [(torch.float32, 16), (torch.float32, 32), (torch.float32, 128),
+                 (torch.float32, 64), (torch.float32, 3), (torch.bfloat16, 32),
+                 (torch.bfloat16, 64), (torch.bfloat16, 256),
+                 (torch.float16, 5)]
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 3001, 106496])
+@pytest.mark.parametrize("dtype,width", GATHER_WIDTHS)
+def test_gather_rows_kernel_bitwise(cuda, dtype, width, n):
+    """Every N around a warp's 32 ids, up to a ranking batch's ids."""
     from recommendflow_tpu_torch.ops.cuda import embedding_bag
     g = torch.Generator(device=cuda).manual_seed(0)
     table = torch.randn((5000, width), generator=g, device=cuda).to(dtype)
-    ids = torch.randint(0, 5000, (3001,), generator=g, device=cuda,
+    ids = torch.randint(0, 5000, (n,), generator=g, device=cuda,
                         dtype=torch.int32)
     before = embedding_bag.gather_rows.launches
     got = embedding_bag.gather_rows(table, ids)
     torch.cuda.synchronize()
     assert embedding_bag.gather_rows.launches == before + 1
     assert torch.equal(got, embedding_bag.gather_rows_plain(table, ids))
-    with pytest.raises(IndexError):
-        embedding_bag.gather_rows(
-            table, torch.tensor([0, 5000], dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         embedding_bag.gather_rows(table, ids.long())
+
+
+def _zipf_ids(n, rows, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(((rng.zipf(1.2, n) - 1) % rows).astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype,width", GATHER_WIDTHS)
+def test_gather_rows_bitwise_on_zipf_ids(cuda, dtype, width):
+    """Zipf(1.2) ids (hot rows repeated many times), bitwise."""
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as eb
+    g = torch.Generator(device=cuda).manual_seed(1)
+    table = torch.randn((7000, width), generator=g, device=cuda).to(dtype)
+    ids = _zipf_ids(20_001, 7000, 2).to(cuda)
+    got = eb.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.uint8),
+                       eb.gather_rows_plain(table, ids).view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype,width", GATHER_WIDTHS)
+def test_gather_rows_misaligned_view(cuda, dtype, width):
+    """A table whose base pointer is one element past a 16-byte boundary (a
+    sliced view) is copied in words smaller than 16 bytes, bitwise."""
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as eb
+    g = torch.Generator(device=cuda).manual_seed(2)
+    rows = 3000
+    flat = torch.randn((rows * width + 1,), generator=g, device=cuda).to(dtype)
+    table = flat[1:].view(rows, width)
+    assert table.data_ptr() % 16 != 0
+    ids = torch.randint(0, rows, (4099,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    got = eb.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert eb._word_bytes(width * table.element_size(), table.data_ptr(),
+                          got.data_ptr()) < 16
+    assert torch.equal(got, eb.gather_rows_plain(table, ids))
+
+
+@pytest.mark.parametrize("width", [32, 256])
+def test_gather_rows_table_past_2gb(cuda, width):
+    """A bf16 table of more than 2^31 bytes (64- and 512-byte rows), ids
+    near its end and its start: the offsets are 64-bit."""
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as eb
+    rows = (1 << 31) // (2 * width) + 4096
+    table = torch.empty((rows, width), dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    table[-8192:] = torch.randn((8192, width), generator=g, device=cuda
+                                ).to(torch.bfloat16)
+    table[:64] = torch.randn((64, width), generator=g, device=cuda
+                             ).to(torch.bfloat16)
+    near_end = rows - 1 - torch.randint(0, 8192, (5000,), generator=g,
+                                        device=cuda)
+    ids = torch.cat([near_end, torch.arange(64, device=cuda)]).to(torch.int32)
+    assert table.numel() * 2 > (1 << 31)
+    got = eb.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16),
+                       eb.gather_rows_plain(table, ids).view(torch.int16))
+    del table
+
+
+def test_gather_rows_checks_ids_before_launch(cuda):
+    """An id outside [0, R) raises IndexError before the kernel is launched;
+    with check_ids=False (ids checked on the host) it launches with no host
+    check."""
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as eb
+    table = torch.randn((5000, 32), device=cuda).to(torch.bfloat16)
+    for bad in ([0, 5000], [-1, 3], [4999, 7, 1 << 30]):
+        before = eb.gather_rows.launches
+        with pytest.raises(IndexError):
+            eb.gather_rows(table, torch.tensor(bad, dtype=torch.int32,
+                                               device=cuda))
+        assert eb.gather_rows.launches == before
+    ids = torch.tensor([4999, 0], dtype=torch.int32, device=cuda)
+    before = eb.gather_rows.launches
+    got = eb.gather_rows(table, ids, check_ids=False)
+    assert eb.gather_rows.launches == before + 1
+    assert torch.equal(got, table[[4999, 0]])
+
+
+_BAD_ID_ON_THE_CARD = textwrap.dedent("""
+    import os, sys
+    import torch
+    sys.path.insert(0, sys.argv[1])
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.train.trainer import to_device
+    conf = Configuration(sys.argv[2])
+    model, _ = build_network(conf.networks["class"],
+                             {"conf": conf, "device": "cuda", "seed": 0})
+    batch = synthetic_batch(model.schema, 64, seed=1)
+    batch[model.schema.sparse_slots()[0].name].reshape(-1)[3] = int(sys.argv[3])
+    model.eval()
+    try:
+        with torch.no_grad():
+            model.embedder(to_device(batch, torch.device("cuda")))
+            print("launched", flush=True)
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        print("raised:", e, flush=True)
+        os._exit(0)
+    print("no error", flush=True)
+    os._exit(0)
+""")
+
+
+@pytest.mark.parametrize("bad", [1 << 30, -(1 << 30)])
+def test_embed_pass_on_device_tensors_stops_at_a_bad_id(cuda, bad):
+    """A batch put on the card by the caller is not checked on the host;
+    an id outside the stacked table stops the embed pass's gather with a
+    device-side assert before its row is read. The assert ends the CUDA
+    context, so the pass runs in a process of its own."""
+    root = os.path.abspath(tp.ROOT)
+    r = subprocess.run(
+        [sys.executable, "-c", _BAD_ID_ON_THE_CARD, root,
+         os.path.join(root, "conf", "demo_ranking.yaml"), str(bad)],
+        capture_output=True, text=True, timeout=300)
+    said = r.stdout + r.stderr
+    assert r.returncode == 0, said
+    assert "raised:" in r.stdout and "no error" not in r.stdout, said
+    assert "device-side assert" in said, said
+    assert "gather_rows: id outside [0, rows) of the table" in said, said
 
 
 @pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
