@@ -13,14 +13,18 @@ Every `kernel` leaf is a Dense layer's, whatever its owner is called
 (`Dense_i`, or a role: `head`, `gate{t}`, `linear`, `q`, ...): a 2-D kernel
 becomes a transposed `weight`, and Mmoe's stacked [E, in, out] expert
 kernels (flax `nn.vmap`) a `weight` of the same layout. Bare parameters
-(`w{i}`, `b{i}`, `field_latents`, `pos_emb`) keep their names and layouts.
+(`w{i}`, `b{i}`, `field_latents`, `pos_emb`, Dice's `alpha`,
+LocationBasedAttention's `query` [D, 1]) keep their names and layouts. A
+BatchNorm without scale or bias (Dice's `BatchNorm_0`) has only its
+`batch_stats`, and the port's module only its running statistics.
 For the text encoder (`ops/transformer.py:TextEncoder`), LayerNorm and
 Embed modules:
 
   params/.../mha/{q,k,v,out}/kernel     -> ....mha.{q,k,v,out}.weight (transposed)
   params/.../{emb_ln,ln1,ln2}/{scale, bias}
                                         -> ....{emb_ln,ln1,ln2}.{weight, bias}
-  params/{tok_emb,seg_emb}/embedding    -> {tok_emb,seg_emb}.weight
+  params/{tok_emb,seg_emb}/embedding    -> {tok_emb,seg_emb}.weight (Esim's
+                                           tok_emb too)
   params/pos_emb                        -> pos_emb (a bare parameter, as is)
 
 bf16 leaves arrive as `ml_dtypes.bfloat16` arrays, or as 2-byte void arrays
@@ -81,7 +85,7 @@ def to_numpy(t: torch.Tensor, bf16_dtype=None) -> np.ndarray:
     ml_dtypes.bfloat16) or, when None, a 2-byte void array of the same bits."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        bits = t.view(torch.int16).numpy().view(np.uint16)
+        bits = t.view(torch.int16).numpy().view(np.uint16).copy()
         return bits.view(bf16_dtype if bf16_dtype is not None else np.dtype("V2"))
     return t.numpy().copy()
 

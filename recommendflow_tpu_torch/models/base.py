@@ -76,15 +76,16 @@ class FeatureEmbedder(nn.Module):
 def init_dense_(module: nn.Module, generator: torch.Generator) -> None:
     """flax's Dense defaults on every Linear (and batched ExpertsDense)
     below `module`: kernel lecun_normal (normal truncated at two standard
-    deviations, rescaled to variance 1/fan_in), bias zero. BatchNorm keeps
-    scale 1, bias 0, mean 0, var 1."""
+    deviations, rescaled to variance 1/fan_in), bias zero where the layer
+    has one. BatchNorm keeps scale 1, bias 0, mean 0, var 1."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, ExpertsDense)):
             std = math.sqrt(1.0 / m.in_features) / .87962566103423978
             with torch.no_grad():
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
 
 
 class RecModel(nn.Module):

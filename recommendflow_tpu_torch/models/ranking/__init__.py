@@ -4,3 +4,6 @@ from recommendflow_tpu_torch.models.ranking.deepfm import (DeepFm, DeepFM,
                                                            XDeepFm, XDeepFM)
 from recommendflow_tpu_torch.models.ranking.mmoe import Mmoe, MMoE
 from recommendflow_tpu_torch.models.ranking.essm import Essm, ESSM, Esmm
+from recommendflow_tpu_torch.models.ranking.din import Din, DIN
+from recommendflow_tpu_torch.models.ranking.tabtransformer import TabTransformer
+from recommendflow_tpu_torch.models.ranking.esim import Esim

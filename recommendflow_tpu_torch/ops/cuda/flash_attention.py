@@ -1,5 +1,5 @@
 """`flash_attention`: softmax attention over [B, H, L, D] with an optional
-[B, Lk] key mask (True = valid), forward only.
+[B, Lk] key mask (True = valid), differentiable in q, k and v.
 
 Replaces `recommendflow_tpu/ops/pallas/flash_attention.py:flash_attention`
 and computes the function of the vanilla SDPA the JAX `TextEncoder` runs
@@ -11,6 +11,18 @@ CUDA source, its bound and its design are in `csrc/flash_attention.cu`.
 `flash_attention` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises. `flash_attention.launches` counts
 launches.
+
+The gradient on the card (`_FlashAttention`) is the vanilla maths' gradient,
+in plain torch: the JAX package has no backward kernel for its Pallas
+`flash_attention` (it trains through the vanilla SDPA, which XLA
+differentiates outside any Pallas kernel), so neither has the port.
+`flash_attention_backward` recomputes the softmax weights P in f32 from the
+saved q, k and the mask, then applies the standard softmax backward. It does
+so rather than differentiate `flash_attention_plain` again, so that no second
+autograd graph is built inside a backward and only q, k, v and the mask are
+kept for it (the kernel's output is not needed). Under `torch.no_grad()`, or
+when no input needs a gradient, the kernel launches as it is and nothing is
+saved.
 """
 from __future__ import annotations
 
@@ -100,12 +112,59 @@ def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, mask: Optional[torch.Tensor],
+                             grad_out: torch.Tensor):
+    """(dq, dk, dv) of `flash_attention_plain` at (q, k, v, mask) for the
+    output gradient `grad_out`, in f32 with plain torch ops, each returned
+    in its input's dtype. With s = q·kᵀ/√D masked to -1e9 and P =
+    softmax(s): dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P ⊙ (dP − rowsum(P ⊙ dP)),
+    zero where a key is masked (the -1e9 fill is a constant), dQ = dS·K/√D,
+    dK = dSᵀ·Q/√D. A row whose keys are all masked has uniform P over the Lk
+    keys, so its dV is dO/Lk at every key and its dQ is 0."""
+    b, _, _, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, go = q.float(), k.float(), v.float(), grad_out.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    keep = None if mask is None else mask.reshape(b, 1, 1, -1)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), go)
+    dp = torch.matmul(go, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    if keep is not None:
+        ds = ds.masked_fill(~keep, 0.0)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward with the vanilla maths' backward
+    (`flash_attention_backward`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return launch_flash_attention(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, mask = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, mask, grad_out)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(q [B, H, Lq, D], k and v [B, H, Lk, D], mask [B, Lk] bool or None)
-    -> [B, H, Lq, D] in q's dtype, f32 accumulation."""
+    -> [B, H, Lq, D] in q's dtype, f32 accumulation; differentiable in q, k
+    and v (on the card through `_FlashAttention`)."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, mask)
     return launch_flash_attention(q, k, v, mask)
 
 

@@ -46,36 +46,66 @@ def get_activation(name: Union[str, Callable]) -> Callable:
 
 
 class BatchNorm(nn.Module):
-    """flax's `nn.BatchNorm` over the last axis of [B, F] inputs.
+    """flax's `nn.BatchNorm` over the last axis: the statistics are taken
+    over every other axis ([B, F], or [B, L, U] as Dice normalises, pad
+    positions included as in flax).
 
     Training: normalise with the batch mean and the BIASED variance
     E[x^2] - E[x]^2 (clipped at 0), and move the running statistics as
     `momentum * running + (1 - momentum) * batch` (flax's momentum: 0.99
     keeps 99%). Eval: normalise with the running statistics. Both compute
-    (x - mean) * (rsqrt(var + eps) * weight) + bias, as flax does.
+    (x - mean) * (rsqrt(var + eps) * weight) + bias, as flax does; with
+    use_scale / use_bias off (flax's flags) the module has no weight / bias,
+    so its state dict holds only what the flax tree has.
     `nn.BatchNorm1d` cannot stand in: it moves the running variance with the
     unbiased batch variance. The state-dict names are BatchNorm1d's."""
 
     def __init__(self, features: int, eps: float = 1e-6,
-                 momentum: float = 0.99, device=None):
+                 momentum: float = 0.99, use_scale: bool = True,
+                 use_bias: bool = True, device=None):
         super().__init__()
         self.eps, self.momentum = eps, momentum
-        self.weight = nn.Parameter(torch.ones(features, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.weight = nn.Parameter(torch.ones(features, device=device)) \
+            if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) \
+            if use_bias else None
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean = x.mean(dim=0)
-            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (x - mean) * mul
+        return y + self.bias if self.bias is not None else y
+
+
+class Dice(nn.Module):
+    """DIN's Dice with a learnable per-feature alpha (zero-initialised) and
+    BatchNorm statistics (`BatchNorm_0`: no scale or bias, epsilon 1e-9,
+    momentum 0.99; batch statistics in training, running ones in eval):
+    p·x + alpha·(1−p)·x with p = sigmoid(BatchNorm(x)), over the last axis
+    of x."""
+
+    def __init__(self, features: int, epsilon: float = 1e-9, device=None):
+        super().__init__()
+        self.BatchNorm_0 = BatchNorm(features, eps=epsilon, use_scale=False,
+                                     use_bias=False, device=device)
+        self.alpha = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = torch.sigmoid(self.BatchNorm_0(x))
+        return p * x + self.alpha * (1.0 - p) * x
 
 
 class MLP(nn.Module):

@@ -1,12 +1,13 @@
-"""Transformer blocks and the compact BERT-style text encoder (the
-counterpart of `recommendflow_tpu/ops/transformer.py:20-150`; `TabTransformer`
-and `ImageEncoder` come later).
+"""Transformer blocks, the compact BERT-style text encoder and the
+TabTransformer blocks (the counterpart of
+`recommendflow_tpu/ops/transformer.py:20-170`; `ImageEncoder` comes later).
 
 Submodules carry the flax names (`tok_emb`, `seg_emb`, `pos_emb`, `emb_ln`,
 `block{i}.mha.{q,k,v,out}`, `block{i}.ln1`, `block{i}.ffn.Dense_{0,1}`,
 `block{i}.ln2`), so `interop.py` maps a flax `TextEncoder` tree onto the
-state dict one to one. Training mode follows the module's `train()`/`eval()`
-state (dropout drops only in training). Parameters and activations are f32.
+state dict one to one (`TabTransformer`: `block{i}.…` likewise). Training
+mode follows the module's `train()`/`eval()` state (dropout drops only in
+training). Parameters and activations are f32.
 """
 from __future__ import annotations
 
@@ -166,3 +167,22 @@ class TextEncoder(nn.Module):
         if self.pooling == "sum":
             return (out * m).sum(dim=1)
         return torch.where(m > 0, out, torch.full_like(out, -1e9)).amax(dim=1)
+
+
+class TabTransformer(nn.Module):
+    """`num_blocks` post-LN encoder blocks over field embeddings [B, F, D]
+    with no mask, flattened to [B, F*D] (`block{i}`, as flax names them)."""
+
+    def __init__(self, model_dim: int, num_blocks: int = 2, num_heads: int = 4,
+                 ffn_hidden: int = 256, dropout: float = 0.1, device=None):
+        super().__init__()
+        self.num_blocks = num_blocks
+        for i in range(num_blocks):
+            self.add_module(f"block{i}", TransformerEncoderBlock(
+                model_dim, num_heads, ffn_hidden, dropout, device=device))
+
+    def forward(self, field_emb: torch.Tensor) -> torch.Tensor:
+        x = field_emb
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block{i}")(x)
+        return x.reshape(x.shape[0], -1)

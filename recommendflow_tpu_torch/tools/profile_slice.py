@@ -179,7 +179,10 @@ def count_syncs(fn):
             torch.cuda.set_sync_debug_mode("default")
     out = {}
     for w in caught:
-        if "synchroniz" in str(w.message):
+        # torch's own notice that the mode is a prototype (once a process,
+        # from set_sync_debug_mode itself) is not a wait
+        if "synchroniz" in str(w.message) and \
+                "prototype" not in str(w.message):
             key = f"{os.path.basename(w.filename)}:{w.lineno}"
             out[key] = out.get(key, 0) + 1
     return out
@@ -195,13 +198,15 @@ def profile_training(model, dev, steps: int, batch: int = 1024,
     from torch.profiler import ProfilerActivity, profile
 
     from recommendflow_tpu_torch.data.synthetic import synthetic_batch
-    from recommendflow_tpu_torch.ops.cuda import (embedding_bag, sparse_apply,
-                                                  table_update)
+    from recommendflow_tpu_torch.ops.cuda import (embedding_bag,
+                                                  flash_attention,
+                                                  sparse_apply, table_update)
     from recommendflow_tpu_torch.train.trainer import Trainer
     counters = {"gather_rows": embedding_bag.gather_rows,
                 "scatter_add_rows": embedding_bag.scatter_add_rows,
                 "rowwise_adagrad_update": table_update.rowwise_adagrad_update,
-                "sparse_adagrad_apply": sparse_apply.sparse_adagrad_apply}
+                "sparse_adagrad_apply": sparse_apply.sparse_adagrad_apply,
+                "flash_attention": flash_attention.flash_attention}
     batches = [synthetic_batch(model.schema, batch, seed=50_000 + i)
                for i in range(steps + 2)]
     state, out = None, []

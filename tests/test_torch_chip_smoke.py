@@ -2,7 +2,8 @@
 prints no result, alone in a directory as well, and its CPU rehearsal drives
 every phase at toy sizes through the plain versions (the serving slice, the
 training run of the three table-update modes, the ranking runs of Dcn and
-the other ranking models, the quantized and approximate searchers, the text
+the other ranking models, TabTransformer's attention-ranking run with its
+gradient check, the quantized and approximate searchers, the text
 encoder's encode and HTTP serving, the text search, the CLIs)."""
 import json
 import os
@@ -17,7 +18,7 @@ SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
 REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
              "flash_attention", "slice", "train", "ranking", "ranking_zoo",
-             "sq_search", "ann", "encode", "serve", "text_search", "cli")
+             "attention_ranking", "sq_search", "ann", "encode", "serve", "text_search", "cli")
 
 
 def _run(args, cwd):
@@ -80,14 +81,34 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
         for z in (0.0, 1.2)]
     assert all(c["p_ulps"] == 0 for c in rank["update_check"].values())
     zoo = phases["ranking_zoo"]["models"]
-    assert sorted(zoo) == ["Cold", "DeepFm", "Escm2-dr", "Escm2-ips", "Essm",
-                           "Mmoe", "XDeepFm"]
+    assert sorted(zoo) == ["Cold", "DeepFm", "Din", "Escm2-dr", "Escm2-ips",
+                           "Esim", "Essm", "Mmoe", "TabTransformer", "XDeepFm"]
+    assert zoo["Din"]["config"] == "demo_din.yaml"
+    for name in ("Din", "TabTransformer", "Esim"):
+        check = zoo[name]["grad_check"]
+        assert check["worst_rel_err"] <= check["tolerance"]
+        assert check["k_bias_rel"] <= check["k_bias_tolerance"]
+    attn = phases["attention_ranking"]
+    assert sorted(attn["runs"]) == ["auto", "warm"]
+    assert all(0 <= r["val_auc"] <= 1 for r in attn["runs"].values())
+    assert attn["cpu_vs_card_logit"] <= attn["cpu_tolerance"]
+    assert attn["grad_check"]["worst_rel_err"] <= attn["grad_check"]["tolerance"]
+    assert attn["grad_check"]["tab.block0.mha.q.weight_grad_max"] > 0
+    assert attn["attention_shape"][1:] == [4, 10, 4]   # demo: 10 fields of 16
+    dcli = phases["cli"]["din_cli"]
+    assert 0 <= dcli["train"]["val_auc"] <= 1 and 0 <= dcli["evaluate"]["auc"] <= 1
+    assert dcli["predict_vs_model"] <= 1e-5
     assert "feature_gates" in zoo["Cold"]["outputs"]
     assert {"score0", "score1", "label1"} <= set(zoo["Mmoe"]["outputs"])
     fa = phases["flash_attention"]["cases"]
     assert {k.split("/")[0] for k in fa} == {"float32", "bfloat16"}
     assert any("lk200_d128" in k for k in fa)
     assert any("lk200_d256" in k for k in fa)
+    assert {"float32/tabtransformer", "bfloat16/tabtransformer"} <= set(fa)
+    backward = phases["flash_attention"]["backward"]
+    assert sorted(backward) == ["encoder_masked", "tabtransformer"]
+    assert all(max(b["rel_err"].values()) <= b["tolerance"]
+               for b in backward.values())
     assert all(c["max_abs_err"] <= c["tolerance"] for c in fa.values())
     enc = phases["encode"]
     assert enc["batches"] == 8 and enc["cache_equal"]

@@ -539,17 +539,31 @@ def test_dcn_split_step_matches_the_plain_update(cuda, strategy, zipf):
     both under torch's deterministic algorithms (the duplicate sums then
     add in one order): p bitwise, acc within rtol 1e-6, untouched rows
     bitwise; the loss within rtol 1e-5 of the same step on the CPU."""
+    _split_step_matches_the_plain_update(cuda, "dcn", strategy, zipf)
+
+
+@pytest.mark.parametrize("strategy", ["dense", "sparse_set"])
+def test_tabtransformer_split_step_matches_the_plain_update(cuda, strategy):
+    """The same for a TabTransformer step (flash_attention forward and its
+    backward on the path): the table update against the plain versions, the
+    loss against the CPU."""
+    _split_step_matches_the_plain_update(cuda, "tabtransformer", strategy, 0.0)
+
+
+def _split_step_matches_the_plain_update(cuda, name, strategy, zipf):
     from recommendflow_tpu_torch.config import Configuration
     from recommendflow_tpu_torch.data.synthetic import synthetic_batch
-    from recommendflow_tpu_torch.models.ranking.dcn import Dcn
+    from recommendflow_tpu_torch.models.base import build_network
     from recommendflow_tpu_torch.ops.cuda import embedding_bag as kr
     from recommendflow_tpu_torch.ops.cuda import sparse_apply as ks
     from recommendflow_tpu_torch.ops.cuda import table_update as kt
     from recommendflow_tpu_torch.train.trainer import Trainer, table_params
     conf = Configuration(f"{tp.ROOT}/conf/demo_ranking.yaml")
     conf.networks["table_dtype"] = "bfloat16"
-    gpu = Dcn(conf, dropout=0.0, device=cuda, seed=5)
-    cpu = Dcn(conf, dropout=0.0, device="cpu")
+    gpu, _ = build_network(name, {"conf": conf, "dropout": 0.0,
+                                  "device": cuda, "seed": 5})
+    cpu, _ = build_network(name, {"conf": conf, "dropout": 0.0,
+                                  "device": "cpu"})
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     batch = synthetic_batch(gpu.schema, 256, seed=9, zipf=zipf)
     t = Trainer(gpu, table_update="split", split_strategy=strategy, device=cuda)
@@ -911,3 +925,106 @@ def test_grouped_score_max_tensor_core_wide_rows(cuda, vec_dtype, q, d):
     assert grouped_topk.grouped_score_max.launches == before + 1
     assert got.shape == (q, n_pad // 8)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+
+
+# the attention shapes of the ranking slice: TabTransformer at bench_ranking
+# (no mask), Esim at demo width (key masks, an all-pad row), SelfAttention
+FA_GRAD_CASES = [(2048, 4, 52, 52, 8, False), (64, 4, 12, 12, 16, True),
+                 (16, 1, 20, 20, 32, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d,masked", FA_GRAD_CASES)
+def test_flash_attention_gradient_card_matches_cpu(cuda, dtype, b, h, lq, lk,
+                                                   d, masked):
+    """Kernel 6's gradient on the card (the kernel forward, the vanilla
+    backward) against autograd through the plain version on the CPU, q, k
+    and v the strided split_heads views: f32 within 1e-5 + 1e-5 relative
+    (sums in another order), bf16 within 2^-6 of each gradient's largest
+    magnitude (the forward's bf16 rounding of P and of the output, then one
+    rounding of each gradient)."""
+    from recommendflow_tpu_torch.ops.attention import split_heads
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    g = torch.Generator(device=cuda).manual_seed(b + lk)
+    q, kk, v = (split_heads(torch.randn((b, n, h * d), generator=g,
+                                        device=cuda).to(dtype), h)
+                for n in (lq, lk, lk))
+    go = torch.randn((b, h, lq, d), generator=g, device=cuda).to(dtype)
+    mask = None
+    if masked:
+        mask = torch.rand((b, lk), generator=g, device=cuda) < 0.7
+        mask[:, 0] = True
+        mask[0] = False                              # every key masked
+    leaves = [t.detach().requires_grad_() for t in (q, kk, v)]
+    before = k.flash_attention.launches
+    out = k.flash_attention(*leaves, mask)
+    assert k.flash_attention.launches == before + 1
+    assert out.grad_fn is not None
+    out.backward(go)
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, kk, v)]
+    k.flash_attention_plain(*cpu, None if mask is None else mask.cpu()
+                            ).backward(go.cpu())
+    torch.cuda.synchronize()
+    for a, r in zip(leaves, cpu):
+        assert a.grad.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(a.grad.cpu(), r.grad, rtol=1e-5,
+                                       atol=1e-5)
+        else:
+            tol = 2.0 ** -6 * float(r.grad.float().abs().max())
+            assert float((a.grad.cpu().float() - r.grad.float()).abs().max()
+                         ) <= tol
+
+
+def _grad_errors(gpu, cpu):
+    """Per dense parameter (the tables left out): max |card - CPU| of .grad
+    and max |CPU grad|."""
+    cpu_params = dict(cpu.named_parameters())
+    out = {}
+    for n, p in gpu.named_parameters():
+        if "table_dim" in n:
+            continue
+        ref = cpu_params[n].grad
+        out[n] = (float((p.grad.cpu() - ref).abs().max()),
+                  float(ref.abs().max()))
+    return out
+
+
+@pytest.mark.parametrize("name,conf", [
+    ("din", "demo_din.yaml"), ("tabtransformer", "demo_ranking.yaml"),
+    ("esim", "demo_ranking.yaml")])
+def test_attention_ranking_gradients_card_match_cpu(cuda, name, conf):
+    """One training forward and backward at dropout 0 on the card and on the
+    CPU from the same weights: every dense parameter's gradient within
+    1e-4 of its largest magnitude (f32 GEMMs, TF32 off, summed in another
+    order); an attention key bias, whose exact gradient is 0 (softmax
+    ignores a shift of a query's whole row), below 1e-5 of the model's
+    largest gradient on both. The loss within rtol 1e-5; flash_attention
+    launched (not for Din, which has no attention kernel)."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    c = Configuration(f"{tp.ROOT}/conf/{conf}")
+    gpu, _ = build_network(name, {"conf": c, "dropout": 0.0, "device": cuda,
+                                  "seed": 3})
+    cpu, _ = build_network(name, {"conf": c, "dropout": 0.0, "device": "cpu"})
+    cpu.load_state_dict({k_: v.cpu() for k_, v in gpu.state_dict().items()})
+    batch = tp.to_torch(synthetic_batch(gpu.schema, 256, seed=4))
+    before = k.flash_attention.launches
+    g_loss, _ = gpu.train()({k_: v.to(cuda) for k_, v in batch.items()})
+    g_loss.backward()
+    c_loss, _ = cpu.train()(batch)
+    c_loss.backward()
+    torch.cuda.synchronize()
+    assert (k.flash_attention.launches > before) == (name != "din")
+    np.testing.assert_allclose(float(g_loss.detach()), float(c_loss.detach()),
+                               rtol=1e-5)
+    errs = _grad_errors(gpu, cpu)
+    top = max(m for _, m in errs.values())
+    for n, (err, mag) in errs.items():
+        if n.endswith("mha.k.bias"):
+            assert mag <= 1e-5 * top and \
+                float(gpu.get_parameter(n).grad.abs().max()) <= 1e-5 * top, n
+        else:
+            assert err <= 1e-4 * mag, (n, err, mag)

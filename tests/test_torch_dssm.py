@@ -103,6 +103,6 @@ def test_build_network_resolves_reference_names_without_the_jax_package():
         assert type(model) is Dssm and restored is None
     assert type(build_network("two_tower", kw)[0]) is TwoTower
     with pytest.raises(ImportError):
-        build_network("recommendflow_tpu.models.ranking.din.Din", kw)
+        build_network("recommendflow_tpu.models.matching.pdm.Pdm", kw)
     with pytest.raises(ImportError):
         build_network("no_such_model", kw)
