@@ -1,6 +1,6 @@
-"""Pretrained BERT checkpoint import into the port's `TextEncoder` (the
-counterpart of `recommendflow_tpu/encoder/pretrained.py:41-212`;
-`graft_params`/`apply_pretrained` come with the encoder-model slice).
+"""Pretrained BERT checkpoint import into the port's `TextEncoder`, and its
+graft into a model's encoders (the counterpart of
+`recommendflow_tpu/encoder/pretrained.py`).
 
 The checkpoint is read into one canonical name space
 ('embeddings/word_embeddings', 'encoder/layer_0/attention/self/query/kernel',
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 __all__ = ["bert_encoder_kwargs", "load_bert_checkpoint", "bert_params_to_flax",
-           "load_pretrained_text_encoder"]
+           "load_pretrained_text_encoder", "graft_params", "apply_pretrained"]
 
 # HF hidden_act -> the activation table's names (ops/mlp.py): "gelu" is the
 # erf gelu of HF BERT and bert4keras; "gelu_new" the tanh form
@@ -200,3 +200,68 @@ def load_pretrained_text_encoder(config_path: str, checkpoint_path: str,
     model = TextEncoder(**kwargs, device=device)
     load_jax_variables(model, variables)
     return model, variables
+
+
+# ------------------------------------------------------------ model grafts
+def graft_params(model: torch.nn.Module, module_name: str,
+                 sub_params: Dict[str, Any]) -> torch.nn.Module:
+    """Copy the flax params tree `sub_params` into every submodule of
+    `model` named `module_name` (at any depth), through interop, each leaf
+    cast to the dtype the model holds. Raises KeyError when no submodule
+    has that name, ValueError naming the module when its leaves and the
+    tree's differ in names or shapes (a partial copy would train garbage);
+    nothing is copied then. Returns model."""
+    from recommendflow_tpu_torch.interop import variables_from_jax
+    targets = [(path, m) for path, m in model.named_modules()
+               if path.rsplit(".", 1)[-1] == module_name]
+    if not targets:
+        raise KeyError(f"no module named '{module_name}' in the model")
+    state = variables_from_jax({"params": sub_params})
+    for path, module in targets:
+        _check_shapes(module.state_dict(), state, "/" + path.replace(".", "/"))
+    with torch.no_grad():
+        for _, module in targets:
+            own = module.state_dict()
+            for k, t in state.items():
+                own[k].copy_(t.to(own[k].dtype))
+    return model
+
+
+def _check_shapes(old: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+                  where: str) -> None:
+    old_shapes = {k: tuple(v.shape) for k, v in old.items()}
+    new_shapes = {k: tuple(v.shape) for k, v in new.items()}
+    if old_shapes != new_shapes:
+        raise ValueError(
+            f"pretrained params do not match module '{where}': model has "
+            f"{old_shapes}, checkpoint gives {new_shapes} — configure the "
+            "model from the same bert_config.json (bert_encoder_kwargs)")
+
+
+def apply_pretrained(model: torch.nn.Module) -> torch.nn.Module:
+    """Graft every pretrained encoder named under `Networks.pretrained` into
+    `model` (the trainer's init hook):
+
+        Networks:
+          pretrained:
+            encoder:        {config_path: ..., checkpoint_path: ...}
+            user_encoder:   {config_path: ..., checkpoint_path: ...}
+
+    The positional table is clipped to the spec's `max_len`, else to the
+    model's `token_max_len()`, as the models size their encoders."""
+    conf = getattr(model, "conf", None)
+    networks = getattr(conf, "networks", None) or {}
+    specs = networks.get("pretrained") if isinstance(networks, dict) else None
+    if not specs:
+        return model
+    default_len = (model.token_max_len()
+                   if hasattr(model, "token_max_len") else None)
+    for module_name, spec in specs.items():
+        kwargs = bert_encoder_kwargs(spec["config_path"],
+                                     max_len=spec.get("max_len") or default_len)
+        params = bert_params_to_flax(
+            load_bert_checkpoint(spec["checkpoint_path"]),
+            num_layers=kwargs["num_layers"], max_len=kwargs["max_len"],
+            num_heads=kwargs["num_heads"])
+        graft_params(model, module_name, params)
+    return model

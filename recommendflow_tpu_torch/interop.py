@@ -27,6 +27,15 @@ Embed modules:
                                            tok_emb too)
   params/pos_emb                        -> pos_emb (a bare parameter, as is)
 
+AttentionFusion's `stats` collection (ops/fusion.py) maps onto its buffers,
+and an image slot's patch projection and ViT (models/base.py) onto the
+embedder's parameter and submodule of the same names:
+
+  stats/<m>/{infer_weights, infer_count} -> <m>.{infer_weights, infer_count}
+  params/embedder/img_proj_<name>       -> embedder.img_proj_<name> (as is)
+  params/embedder/vit_<name>/{patch_proj, cls, pos_emb, emb_ln, block{i}, head}
+                                        -> embedder.vit_<name>.…
+
 bf16 leaves arrive as `ml_dtypes.bfloat16` arrays, or as 2-byte void arrays
 when read back from an .npz without ml_dtypes installed; both move through a
 uint16 view, never through float32, so the bits are kept.
@@ -41,7 +50,7 @@ reads off its TrainState: `params`, `batch_stats`, the split path's
 `table_acc`, or the optax row-wise Adagrad accumulators of the dense path,
 and the dense leaves' Adam moments):
 
-  {"params": ..., "batch_stats": ...,
+  {"params": ..., "batch_stats": ..., "stats": ... (where the model has it),
    "table_acc": {"dim{d}": [R/P, 1] f32},
    "opt": {"mu": params tree of the dense leaves, "nu": likewise,
            "count": int},
@@ -64,6 +73,8 @@ _LAYER_NORM = {"scale": "weight", "bias": "bias"}
 _EMBED = {"embedding": "weight"}
 _BN_PARAMS = {"scale": "weight", "bias": "bias"}
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
+_STATS = ("infer_weights", "infer_count")   # AttentionFusion's statistics
+COLLECTIONS = ("params", "batch_stats", "stats")
 
 
 def _is_bf16(arr: np.ndarray) -> bool:
@@ -127,6 +138,8 @@ def _torch_key(path: Tuple[str, ...]) -> str:
     owner = mods[-1] if mods else ""
     if owner.startswith("BatchNorm"):
         leaf = (_BN_PARAMS if collection == "params" else _BN_STATS)[leaf]
+    elif collection == "stats" and leaf in _STATS:
+        pass
     elif collection != "params":
         raise KeyError(f"no state-dict counterpart for {'/'.join(path)}")
     else:
@@ -160,6 +173,9 @@ def jax_from_variables(state: Mapping[str, torch.Tensor],
         if owner.startswith("BatchNorm"):
             collection, name = inv_bn[leaf]
             flat[(collection, *mods, name)] = arr
+            continue
+        if leaf in _STATS:
+            flat[("stats", *mods, leaf)] = arr
             continue
         name = {v: k for k, v in _leaf_names(owner).items()}.get(leaf, leaf)
         if name == "kernel" and arr.ndim == 2:
@@ -215,7 +231,7 @@ def _dense_params(state) -> Dict[str, torch.nn.Parameter]:
 def load_train_state(state, tree: Mapping[str, Any]):
     """Copy a training-state tree (module docstring) into a port TrainState,
     in place, onto its devices. Returns state."""
-    load_jax_variables(state.model, {k: tree[k] for k in ("params", "batch_stats")
+    load_jax_variables(state.model, {k: tree[k] for k in COLLECTIONS
                                      if k in tree})
     accs = tree.get("table_acc") or {}
     if sorted(accs) != sorted(state.table_acc):

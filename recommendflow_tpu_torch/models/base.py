@@ -23,7 +23,9 @@ from torch import nn
 
 from recommendflow_tpu_torch.config.configuration import Configuration
 from recommendflow_tpu_torch.data.schema import BatchSchema, compile_schema
-from recommendflow_tpu_torch.ops.embedding import (concat_tower, embed_batch,
+from recommendflow_tpu_torch.ops.embedding import (IMAGE_PATCH, _global_ids,
+                                                   concat_tower, embed_batch,
+                                                   gather_group,
                                                    init_group_table)
 from recommendflow_tpu_torch.ops.mlp import ExpertsDense
 from recommendflow_tpu_torch.utils.str_parser import str2fn
@@ -37,30 +39,78 @@ STAGES = ("matching", "preranking", "ranking", "reranking")
 
 class FeatureEmbedder(nn.Module):
     """Owns the stacked embedding tables (`table_dim{d}`, stored layout) and
-    maps a batch to pooled per-feature embeddings."""
+    maps a batch to pooled per-feature embeddings.
+
+    An image slot gets a patch projection `img_proj_{name}` [192, dim] f32
+    (lecun_normal), or under `Networks.image_encoder: vit` an
+    `ImageEncoder` named `vit_{name}` (the class defaults, out_dim the
+    slot's dim). The JAX embedder calls its ViT without `training`, so the
+    ViT's dropout never drops: here it stays in eval mode whatever mode the
+    model is put in."""
 
     def __init__(self, schema: BatchSchema, generator: torch.Generator,
                  device=None):
         super().__init__()
         self.schema = schema
         dtype = getattr(schema, "table_dtype", "float32")
-        for name in schema.order:
-            if schema.slots[name].kind == "image":
-                raise NotImplementedError(
-                    f"image feature '{name}' needs the image encoder, which "
-                    f"recommendflow_tpu_torch does not have yet")
         for dim, group in schema.groups.items():
             table = init_group_table(generator, group, dtype, device=device)
             self.register_parameter(f"table_dim{dim}", nn.Parameter(table))
+        vit = getattr(schema, "image_encoder", "linear") == "vit"
+        self._images: List[str] = []
+        for name in schema.order:
+            slot = schema.slots[name]
+            if slot.kind != "image":
+                continue
+            self._images.append(name)
+            if vit:
+                from recommendflow_tpu_torch.ops.transformer import ImageEncoder
+                self.add_module(f"vit_{name}", ImageEncoder(
+                    slot.max_len, out_dim=slot.dim, generator=generator,
+                    device=device))
+            else:
+                fan_in = IMAGE_PATCH * IMAGE_PATCH * 3
+                proj = torch.empty((fan_in, slot.dim), device=device)
+                std = math.sqrt(1.0 / fan_in) / .87962566103423978
+                nn.init.trunc_normal_(proj, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                self.register_parameter(f"img_proj_{name}", nn.Parameter(proj))
+
+    def train(self, mode: bool = True) -> "FeatureEmbedder":
+        super().train(mode)
+        for name in self._images:
+            if hasattr(self, f"vit_{name}"):
+                getattr(self, f"vit_{name}").train(False)
+        return self
 
     def tables(self) -> Dict[str, torch.Tensor]:
-        return {f"dim{dim}": getattr(self, f"table_dim{dim}")
-                for dim in self.schema.groups}
+        """'dim{d}' -> stacked table, 'img_{name}' -> patch projection."""
+        out = {f"dim{dim}": getattr(self, f"table_dim{dim}")
+               for dim in self.schema.groups}
+        for name in self._images:
+            if hasattr(self, f"img_proj_{name}"):
+                out[f"img_{name}"] = getattr(self, f"img_proj_{name}")
+        return out
 
     def forward(self, batch: Batch, tower: Optional[str] = None,
                 exclude=()) -> Dict[str, torch.Tensor]:
-        return embed_batch(self.tables(), self.schema, batch, tower=tower,
-                           exclude=exclude)
+        out = embed_batch(self.tables(), self.schema, batch, tower=tower,
+                          exclude=exclude)
+        for name in self._images:
+            vit = getattr(self, f"vit_{name}", None)
+            if vit is not None and (tower is None or self.schema.slots[name]
+                                    in self.schema.tower_slots(tower)):
+                out[name] = vit(batch[name].float())
+        return out
+
+    def unpooled(self, batch: Batch, name: str) -> torch.Tensor:
+        """One sparse feature's raw per-position embeddings [B, H, L, D],
+        for models that pool a sequence themselves: pair it with
+        `forward(..., exclude=[name])` so its rows are gathered once."""
+        slot = self.schema.slots[name]
+        return gather_group(getattr(self, f"table_dim{slot.dim}"),
+                            self.schema.groups[slot.dim],
+                            _global_ids(self.schema, slot, batch[name]))
 
     def tower_vector(self, batch: Batch, tower: str) -> torch.Tensor:
         return concat_tower(self(batch, tower), self.schema, tower)
@@ -123,6 +173,13 @@ class RecModel(nn.Module):
                 raise ValueError("no loss given (model arg or Networks.loss)")
             self._loss_fn = str2fn(loss) if isinstance(loss, str) else loss
         return self._loss_fn
+
+    def token_max_len(self, default: int = 64) -> int:
+        """Longest token feature in the schema: sizes a TextEncoder's max_len
+        so its length guard matches what the pipeline emits."""
+        lens = [s.max_len for s in self.schema.slots.values()
+                if s.kind in ("token", "bert")]
+        return max(lens) if lens else default
 
     def network_conf(self, key: str, default=None):
         return self.conf.networks.get(key, default)

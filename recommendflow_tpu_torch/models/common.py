@@ -106,3 +106,27 @@ def bce_probs(y_true: torch.Tensor, p: torch.Tensor,
 def bce_with_logits(y_true: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.clamp(logits, min=0) - logits * y_true +
                       torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def token_slots(schema: BatchSchema, tower: str) -> List[FeatureSlot]:
+    """A tower's token and bert features (text encoder inputs), in config
+    order."""
+    return [s for s in schema.tower_slots(tower) if s.kind in ("token", "bert")]
+
+
+def text_encoder_kwargs(model, pretrained_name: str, pooling: str,
+                        vocab_size: int, num_layers: int, model_dim: int
+                        ) -> Dict[str, object]:
+    """TextEncoder constructor kwargs for a model's encoder: sized from the
+    `bert_config.json` of `Networks.pretrained.<pretrained_name>` when the
+    config names one (so the trainer's graft matches its shapes), else the
+    given widths; max_len is the spec's, else the model's token_max_len()."""
+    pre = (model.network_conf("pretrained") or {}).get(pretrained_name)
+    if pre:
+        from recommendflow_tpu_torch.encoder.pretrained import bert_encoder_kwargs
+        return bert_encoder_kwargs(
+            pre["config_path"], max_len=pre.get("max_len") or model.token_max_len(),
+            pooling=pooling)
+    return dict(vocab_size=vocab_size, num_layers=num_layers,
+                model_dim=model_dim, pooling=pooling,
+                max_len=model.token_max_len())

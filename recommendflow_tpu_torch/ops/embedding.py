@@ -22,6 +22,10 @@ counterpart of `recommendflow_tpu/ops/embedding.py`).
     outputs concatenate to 2*dim.
   * id 0 of every member table is the pad/OOV row, zero-initialized and
     masked out of pooling.
+  * An image slot's pixels [B, S, S, 3] are cut into 8x8 patches, projected
+    by the slot's `img_{name}` [192, dim] matrix and mean-pooled
+    (`patch_embed`); under `Networks.image_encoder: vit` the model's
+    `ImageEncoder` takes the slot instead (models/base.py).
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ NEG_INF = -1e9
 POS_INF = 1e9
 ROW_BYTES = 512        # physical-row packing of the stored layout
 SHARD_MULTIPLE = 256   # physical rows padded to a multiple of this
+IMAGE_PATCH = 8        # patchify side: [S, S, 3] -> [(S/8)^2, 192] patch rows
 
 DType = Union[str, torch.dtype]
 
@@ -129,6 +134,22 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     host check on a card: see _TakeRows), differentiable in table: its
     gradient is a dense [R, W] table of table's dtype."""
     return _TakeRows.apply(table, ids)
+
+
+def patchify(images: torch.Tensor, patch: int = IMAGE_PATCH) -> torch.Tensor:
+    """[B, S, S, C] pixels -> [B, (S/p)^2, p*p*C] patch rows (row-major
+    patches, each flattened row by row as the JAX reshape does)."""
+    b, s, _, c = images.shape
+    n = s // patch
+    x = images.reshape(b, n, patch, n, patch, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, n * n, patch * patch * c)
+
+
+def patch_embed(proj: torch.Tensor, images: torch.Tensor) -> torch.Tensor:
+    """[B, S, S, 3] pixels -> [B, dim]: 8x8 patches times `proj`
+    [192, dim], mean over the patches. One f32 matmul in torch, as the JAX
+    package computes it outside any Pallas kernel."""
+    return torch.matmul(patchify(images), proj).mean(dim=1)
 
 
 def gather_group(table: torch.Tensor, group: TableGroup,
@@ -270,9 +291,11 @@ def embed_batch(params: Dict[str, torch.Tensor], schema: BatchSchema,
 
     Features sharing a dim group are gathered in ONE fused gather per group
     (ids concatenated along a flat axis, results split back). `params` maps
-    'dim{d}' to the stored tables. Token and bert sequences are left to the
-    text encoders that own them, as in the JAX package; an image slot raises
-    (no image encoder yet)."""
+    'dim{d}' to the stored tables and 'img_{name}' to an image slot's patch
+    projection. Token and bert sequences are left to the text encoders that
+    own them, as in the JAX package, and so is an image slot without a
+    projection (a ViT image encoder owns it). `exclude` skips slots the
+    model embeds itself (Pdm's attention-pooled sequences)."""
     out: Dict[str, torch.Tensor] = {}
     slots = _slots(schema, tower)
     for slot in slots:
@@ -280,10 +303,9 @@ def embed_batch(params: Dict[str, torch.Tensor], schema: BatchSchema,
             continue
         if slot.kind in ("dense", "embedding"):
             out[slot.name] = batch[slot.name].float()
-        elif slot.kind == "image":
-            raise NotImplementedError(
-                f"feature '{slot.name}' (image) needs the image encoder, "
-                f"which recommendflow_tpu_torch does not have yet")
+        elif slot.kind == "image" and f"img_{slot.name}" in params:
+            out[slot.name] = patch_embed(params[f"img_{slot.name}"],
+                                         batch[slot.name].float())
 
     for dim, group_slots in _sparse_by_dim(slots, exclude).items():
         group = schema.groups[dim]

@@ -1,11 +1,13 @@
-"""Transformer blocks, the compact BERT-style text encoder and the
-TabTransformer blocks (the counterpart of
-`recommendflow_tpu/ops/transformer.py:20-170`; `ImageEncoder` comes later).
+"""Transformer blocks, the compact BERT-style text encoder, the
+TabTransformer blocks and the ViT-style image encoder (the counterpart of
+`recommendflow_tpu/ops/transformer.py`).
 
 Submodules carry the flax names (`tok_emb`, `seg_emb`, `pos_emb`, `emb_ln`,
 `block{i}.mha.{q,k,v,out}`, `block{i}.ln1`, `block{i}.ffn.Dense_{0,1}`,
 `block{i}.ln2`), so `interop.py` maps a flax `TextEncoder` tree onto the
-state dict one to one (`TabTransformer`: `block{i}.…` likewise). Training
+state dict one to one (`TabTransformer`: `block{i}.…` likewise;
+`ImageEncoder`: `patch_proj`, `cls`, `pos_emb`, `emb_ln`, `block{i}`,
+`head`). Training
 mode follows the module's `train()`/`eval()` state (dropout drops only in
 training). Parameters and activations are f32.
 """
@@ -20,6 +22,7 @@ from torch import nn
 from recommendflow_tpu_torch.device import resolve_device
 from recommendflow_tpu_torch.ops.attention import (MultiHeadAttention,
                                                    sinusoidal_position_encoding)
+from recommendflow_tpu_torch.ops.embedding import IMAGE_PATCH, patchify
 from recommendflow_tpu_torch.ops.mlp import get_activation
 
 POOLINGS = ("cls", "pos", "avg", "sum", "max")
@@ -186,3 +189,50 @@ class TabTransformer(nn.Module):
         for i in range(self.num_blocks):
             x = getattr(self, f"block{i}")(x)
         return x.reshape(x.shape[0], -1)
+
+
+class ImageEncoder(nn.Module):
+    """ViT-style image encoder: [B, S, S, 3] pixels -> 8x8 patches ->
+    `patch_proj` -> a zero-initialised [CLS] (`cls` [1, 1, D]) prepended,
+    learned positions added (`pos_emb` [1, (S/8)^2 + 1, D], normal(0.02)) ->
+    `emb_ln` -> dropout -> `num_layers` encoder blocks with no mask (a patch
+    grid has no padding) -> pooled (the [CLS] row, or the mean over rows
+    with pooling "avg") -> `head` [B, out_dim].
+
+    The JAX module reads S off its input; here `image_size` sizes the
+    positional table. Its Linear layers are drawn by the owning model
+    (`init_dense_`), `pos_emb` from `generator`."""
+
+    def __init__(self, image_size: int, out_dim: int = 128,
+                 patch: int = IMAGE_PATCH, num_layers: int = 2,
+                 model_dim: int = 128, num_heads: int = 4,
+                 ffn_hidden: int = 512, dropout: float = 0.1,
+                 pooling: str = "cls",
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if pooling not in ("cls", "avg"):
+            raise ValueError(f"unknown pooling '{pooling}' (cls | avg)")
+        n = image_size // patch
+        self.patch, self.num_layers, self.pooling = patch, num_layers, pooling
+        self.patch_proj = nn.Linear(patch * patch * 3, model_dim,
+                                    device=device)
+        self.cls = nn.Parameter(torch.zeros((1, 1, model_dim), device=device))
+        self.pos_emb = nn.Parameter(torch.empty((1, n * n + 1, model_dim),
+                                                device=device))
+        self.emb_ln = nn.LayerNorm(model_dim, eps=1e-6, device=device)
+        self.drop = nn.Dropout(dropout)
+        for i in range(num_layers):
+            self.add_module(f"block{i}", TransformerEncoderBlock(
+                model_dim, num_heads, ffn_hidden, dropout, device=device))
+        self.head = nn.Linear(model_dim, out_dim, device=device)
+        with torch.no_grad():
+            self.pos_emb.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.patch_proj(patchify(images, self.patch))        # [B, N, D]
+        cls = self.cls.expand(x.shape[0], -1, -1)
+        x = self.drop(self.emb_ln(torch.cat([cls, x], dim=1) + self.pos_emb))
+        for i in range(self.num_layers):
+            x = getattr(self, f"block{i}")(x)
+        pooled = x[:, 0] if self.pooling == "cls" else x.mean(dim=1)
+        return self.head(pooled)

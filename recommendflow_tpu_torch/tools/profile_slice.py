@@ -190,11 +190,12 @@ def count_syncs(fn):
 
 def profile_training(model, dev, steps: int, batch: int = 1024,
                      modes=(("split", "dense"), ("split", "sparse_set"),
-                            ("dense", "dense"))):
+                            ("dense", "dense")), batches=None):
     """Per (table_update, split_strategy) mode: wall and device time per
     step over `steps` steps of `batch` rows under torch.profiler, idle
-    share, the port's kernels' launches and device time by kernel. Returns
-    the modes' stats."""
+    share, the port's kernels' launches and device time by kernel. The
+    steps take `batches` (host batches, at least steps + 2) when given, else
+    synthetic ones. Returns the modes' stats."""
     from torch.profiler import ProfilerActivity, profile
 
     from recommendflow_tpu_torch.data.synthetic import synthetic_batch
@@ -207,8 +208,9 @@ def profile_training(model, dev, steps: int, batch: int = 1024,
                 "rowwise_adagrad_update": table_update.rowwise_adagrad_update,
                 "sparse_adagrad_apply": sparse_apply.sparse_adagrad_apply,
                 "flash_attention": flash_attention.flash_attention}
-    batches = [synthetic_batch(model.schema, batch, seed=50_000 + i)
-               for i in range(steps + 2)]
+    batches = list(batches)[:steps + 2] if batches is not None else [
+        synthetic_batch(model.schema, batch, seed=50_000 + i)
+        for i in range(steps + 2)]
     state, out = None, []
     for mode, strategy in modes:
         trainer = Trainer(model, table_update=mode, split_strategy=strategy,

@@ -46,6 +46,7 @@ import torch
 from recommendflow_tpu_torch.data.pipeline import prefetch
 from recommendflow_tpu_torch.data.schema import check_batch_ids
 from recommendflow_tpu_torch.device import resolve_device
+from recommendflow_tpu_torch.encoder.pretrained import apply_pretrained
 from recommendflow_tpu_torch.ops.cuda.embedding_bag import gather_rows
 from recommendflow_tpu_torch.ops.cuda.table_update import rowwise_adagrad_update
 from recommendflow_tpu_torch.ops.embedding import (fused_group_ids,
@@ -251,9 +252,19 @@ class Trainer:
         return list(self._split_dims)
 
     def init_state(self, sample_batch: Mapping[str, Any]) -> TrainState:
-        """Plan the table updates from a sample batch and build the state.
-        Dropout draws from torch's generator, seeded here with `seed`."""
+        """Graft the pretrained encoders that `Networks.pretrained` names
+        (encoder/pretrained.py:apply_pretrained), plan the table updates from
+        a sample batch and build the state. Dropout draws from torch's
+        generator, seeded here with `seed`.
+
+        The graft belongs to the weights' initialisation, which the port
+        does once, when the model is built: a model already grafted (by
+        another trainer, or by this one in an earlier call) keeps the
+        weights it holds, trained or not."""
         torch.manual_seed(self.seed)
+        if not getattr(self.model, "pretrained_grafted", False):
+            apply_pretrained(self.model)
+            self.model.pretrained_grafted = True
         tables = table_params(self.model)
         table_acc = {f"dim{d}": init_accumulator(tables[d])
                      for d in self.plan(sample_batch)}

@@ -3,13 +3,17 @@ prints no result, alone in a directory as well, and its CPU rehearsal drives
 every phase at toy sizes through the plain versions (the serving slice, the
 training run of the three table-update modes, the ranking runs of Dcn and
 the other ranking models, TabTransformer's attention-ranking run with its
-gradient check, the quantized and approximate searchers, the text
-encoder's encode and HTTP serving, the text search, the CLIs)."""
+gradient check, SiameseEncoder's text_recall run with its graft and
+gradient checks, the other matching models, the quantized and approximate
+searchers, the text encoder's encode and HTTP serving, the text search, the
+CLIs)."""
 import json
 import os
 import shutil
 import subprocess
 import sys
+
+import pytest
 
 import _torch_parity as tp
 
@@ -18,7 +22,8 @@ SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
 REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
              "flash_attention", "slice", "train", "ranking", "ranking_zoo",
-             "attention_ranking", "sq_search", "ann", "encode", "serve", "text_search", "cli")
+             "attention_ranking", "text_recall", "matching_zoo", "sq_search",
+             "ann", "encode", "serve", "text_search", "cli")
 
 
 def _run(args, cwd):
@@ -29,6 +34,22 @@ def _run(args, cwd):
 
 def _has_result(stdout):
     return '"ok": true' in stdout or '"kernels"' in stdout
+
+
+def _held(check, control=True):
+    """A gradient check's readings: in the rehearsal the "card" is the CPU,
+    so its f32 gradient is the CPU's; the f64 reference ran; the control
+    fault (kernel 6 dropping a key) ran on a model with kernel 6 and broke
+    the rule."""
+    assert check["worst_rel_err"] <= check["tolerance"]
+    assert check["k_bias_rel"] <= check["k_bias_tolerance"]
+    assert check["worst_vs_f64"]["card"] == check["worst_vs_f64"]["cpu"] > 0
+    assert check["loss_f64"] == pytest.approx(check["loss_cpu"], rel=1e-5)
+    if control:
+        assert check["control"]["calls"] > 0
+        assert check["control"]["margin"] > 1
+    else:
+        assert "control" not in check
 
 
 def test_no_card_no_result(tmp_path):
@@ -85,16 +106,44 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
                            "Esim", "Essm", "Mmoe", "TabTransformer", "XDeepFm"]
     assert zoo["Din"]["config"] == "demo_din.yaml"
     for name in ("Din", "TabTransformer", "Esim"):
-        check = zoo[name]["grad_check"]
-        assert check["worst_rel_err"] <= check["tolerance"]
-        assert check["k_bias_rel"] <= check["k_bias_tolerance"]
+        _held(zoo[name]["grad_check"], control=name != "Din")
     attn = phases["attention_ranking"]
     assert sorted(attn["runs"]) == ["auto", "warm"]
     assert all(0 <= r["val_auc"] <= 1 for r in attn["runs"].values())
     assert attn["cpu_vs_card_logit"] <= attn["cpu_tolerance"]
-    assert attn["grad_check"]["worst_rel_err"] <= attn["grad_check"]["tolerance"]
+    _held(attn["grad_check"])
     assert attn["grad_check"]["tab.block0.mha.q.weight_grad_max"] > 0
     assert attn["attention_shape"][1:] == [4, 10, 4]   # demo: 10 fields of 16
+    text = phases["text_recall"]
+    assert text["graft_bitwise"] is True
+    assert sorted(text["runs"]) == ["train", "warm"]
+    assert all(0 <= v <= 1 for k, v in text["recall"].items()
+               if k.startswith("val_hit@"))
+    assert text["attention_shape"] == [16, 4, 64, 16]  # the toy BERT
+    assert text["cpu_vs_card"] <= text["cpu_tolerance"]
+    _held(text["grad_check_grafted"])
+    _held(text["grad_check"])
+    assert text["grad_check"]["encoder.tok_emb.weight_grad_max"] > 0
+    assert 0 < text["valid_key_share"] < 1
+    fa_text = text["flash_attention_check"]
+    assert fa_text["inputs"] == 4                      # 2 layers x 2 towers
+    assert fa_text["max_abs_err"] <= fa_text["tolerance"]
+    assert fa_text["grad_rel_err"] <= fa_text["grad_tolerance"]
+    mzoo = phases["matching_zoo"]["models"]
+    assert sorted(mzoo) == ["Dssm-image", "Dssm-vit", "DssmEncoder", "Mobius",
+                            "Pdm", "Que2Search", "Que2Search-recall"]
+    assert mzoo["Que2Search-recall"]["config"] == "demo_recall.yaml"
+    assert "relevance" in mzoo["Mobius"]["outputs"]
+    assert mzoo["Pdm"]["split"] == {} and mzoo["Mobius"]["split"]
+    for name in ("Pdm", "DssmEncoder", "Que2Search", "Dssm-vit"):
+        assert sorted(mzoo[name]["grad_check"]) == ["built", "trained"]
+        for check in mzoo[name]["grad_check"].values():
+            _held(check)
+    assert all(m["cpu_vs_card"] <= 1e-5 for m in mzoo.values())
+    tcli = phases["cli"]["text_cli"]
+    assert all(0 <= v <= 1 for k, v in tcli["train"].items()
+               if k.startswith("val_hit@"))
+    assert tcli["predict_vs_model"] <= 1e-5
     dcli = phases["cli"]["din_cli"]
     assert 0 <= dcli["train"]["val_auc"] <= 1 and 0 <= dcli["evaluate"]["auc"] <= 1
     assert dcli["predict_vs_model"] <= 1e-5

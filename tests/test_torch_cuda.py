@@ -26,7 +26,10 @@ round once more), at head dims past 128 too; the text encoder on the card
 agrees with its CPU run within 2e-5 and launches flash_attention once per
 layer and batch. The ranking models' eval outputs agree with their CPU runs
 within 1e-5, and a Dcn split step's table update equals the plain update
-(p bitwise, acc rtol 1e-6).
+(p bitwise, acc rtol 1e-6), as does a Que2Search step's on the dense table
+path. Kernel 6 holds at SiameseEncoder's BERT-Base shape with trailing-pad
+masks, forward and gradient; SiameseEncoder's and Pdm's gradients on the
+card agree with the CPU's as the attention rankers' do.
 
 Training steps on the card agree with the same steps on the CPU; the GEMMs
 and the duplicate sums add in another order on each device, so gradients
@@ -1028,3 +1031,159 @@ def test_attention_ranking_gradients_card_match_cpu(cuda, name, conf):
                 float(gpu.get_parameter(n).grad.abs().max()) <= 1e-5 * top, n
         else:
             assert err <= 1e-4 * mag, (n, err, mag)
+
+
+def _trailing_pad_mask(cuda, b, l, seed):
+    """[B, L] key masks of texts of 2..L tokens, padded at the end (the
+    tokenizer's layout)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lengths = torch.randint(2, l + 1, (b, 1), generator=g, device=cuda)
+    return torch.arange(l, device=cuda)[None, :] < lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_text_recall_shape(cuda, dtype):
+    """Kernel 6 at BERT-Base's [128, 12, 64, 64] over a batch's trailing-pad
+    key masks, q, k, v the strided split_heads views: the forward against
+    the plain version (f32 within 1e-5, bf16 within 2^-6 * max|v|) and the
+    gradient against autograd through the plain version on the card (f32
+    within 1e-5 + 1e-5 relative; bf16 within 2^-6 of each gradient's
+    largest magnitude)."""
+    from recommendflow_tpu_torch.ops.attention import split_heads
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    g = torch.Generator(device=cuda).manual_seed(128)
+    q, kk, v = (split_heads(torch.randn((128, 64, 768), generator=g,
+                                        device=cuda).to(dtype), 12)
+                for _ in range(3))
+    go = torch.randn((128, 12, 64, 64), generator=g, device=cuda).to(dtype)
+    mask = _trailing_pad_mask(cuda, 128, 64, 1)
+    leaves = [t.detach().requires_grad_() for t in (q, kk, v)]
+    before = k.flash_attention.launches
+    out = k.flash_attention(*leaves, mask)
+    assert k.flash_attention.launches == before + 1
+    ref_leaves = [t.detach().requires_grad_() for t in (q, kk, v)]
+    ref = k.flash_attention_plain(*ref_leaves, mask)
+    tol = 1e-5 if dtype == torch.float32 else \
+        2.0 ** -6 * float(v.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    out.backward(go)
+    ref.backward(go)
+    torch.cuda.synchronize()
+    for a, r in zip(leaves, ref_leaves):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a.grad, r.grad, rtol=1e-5, atol=1e-5)
+        else:
+            tol = 2.0 ** -6 * float(r.grad.float().abs().max())
+            assert float((a.grad.float() - r.grad.float()).abs().max()) <= tol
+
+
+def _no_dropout(model):
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+@pytest.mark.parametrize("name,conf", [
+    ("siamese_encoder", "demo_text_recall.yaml"), ("pdm", "demo_recall.yaml")])
+def test_matching_gradients_card_match_cpu(cuda, name, conf):
+    """SiameseEncoder (its text encoder's flash_attention with key masks,
+    twice a forward) and Pdm (SelfAttention over the behaviour sequences):
+    one training forward and backward at dropout 0 on the card and on the
+    CPU from the same weights, held as test_attention_ranking_gradients_
+    card_match_cpu holds them (Pdm's `attn_*.k.bias` is an attention key
+    bias too)."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+    c = Configuration(f"{tp.ROOT}/conf/{conf}")
+    gpu, _ = build_network(name, {"conf": c, "device": cuda, "seed": 3})
+    cpu, _ = build_network(name, {"conf": c, "device": "cpu"})
+    cpu.load_state_dict({k_: v.cpu() for k_, v in gpu.state_dict().items()})
+    _no_dropout(gpu), _no_dropout(cpu)
+    batch = tp.to_torch(synthetic_batch(gpu.schema, 256, seed=4))
+    before = k.flash_attention.launches
+    g_loss, _ = gpu.train()({k_: v.to(cuda) for k_, v in batch.items()})
+    g_loss.backward()
+    c_loss, _ = cpu.train()(batch)
+    c_loss.backward()
+    torch.cuda.synchronize()
+    assert k.flash_attention.launches > before
+    np.testing.assert_allclose(float(g_loss.detach()), float(c_loss.detach()),
+                               rtol=1e-5)
+    errs = _grad_errors(gpu, cpu)
+    top = max(m for _, m in errs.values())
+    for n, (err, mag) in errs.items():
+        if n.endswith("mha.k.bias") or (n.startswith("attn_")
+                                        and n.endswith(".k.bias")):
+            assert mag <= 1e-5 * top and \
+                float(gpu.get_parameter(n).grad.abs().max()) <= 1e-5 * top, n
+        else:
+            assert err <= 1e-4 * mag, (n, err, mag)
+
+
+def test_que2search_dense_step_matches_the_plain_update(cuda):
+    """A Que2Search step on the dense table path (conf/demo_recall.yaml:
+    both towers embed their own sparse features, so take_rows' backward
+    builds one dense table gradient per tower and autograd adds them):
+    scatter_add_rows launched once per tower and dim group; the table
+    gradient within 1e-5 of its largest magnitude of the CPU's (duplicate
+    sums in another order); rowwise_adagrad_update on it equals the plain
+    update (p bitwise, acc rtol 1e-6, untouched rows bitwise); the loss
+    within rtol 1e-5 of the CPU's."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as kr
+    from recommendflow_tpu_torch.ops.cuda import table_update as kt
+    from recommendflow_tpu_torch.train.trainer import Trainer, table_params
+    conf = Configuration(f"{tp.ROOT}/conf/demo_recall.yaml")
+    gpu, _ = build_network("que2search", {"conf": conf, "dropout": 0.0,
+                                          "device": cuda, "seed": 5})
+    cpu, _ = build_network("que2search", {"conf": conf, "dropout": 0.0,
+                                          "device": "cpu"})
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    batch = synthetic_batch(gpu.schema, 256, seed=9)
+    t = Trainer(gpu, device=cuda)
+    state = t.init_state(batch)
+    assert t._split_dims == {}
+    tables = table_params(gpu)
+    passes = sum(len({s.dim for s in gpu.schema.tower_slots(tw)
+                      if s.kind == "sparse"}) for tw in ("user", "ad"))
+    before = [f.launches for f in (kr.scatter_add_rows,
+                                   kt.rowwise_adagrad_update)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss, _, phys, rows = t._forward_backward(t._put(batch))
+        grads = {d: p.grad.clone() for d, p in tables.items()}
+        p0 = {d: p.detach().clone() for d, p in tables.items()}
+        acc0 = {d: state.table_acc[f"dim{d}"].clone() for d in tables}
+        state.optimizer.step()
+        t._apply_table_updates(state, phys, rows)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launched = [f.launches - c for f, c in zip(
+        (kr.scatter_add_rows, kt.rowwise_adagrad_update), before)]
+    assert launched == [passes, len(tables)] and passes == 3
+    tc = Trainer(cpu, device="cpu")
+    tc.init_state(batch)
+    c_loss, _, _, _ = tc._forward_backward(tc._put(batch))
+    np.testing.assert_allclose(float(loss.detach()), float(c_loss.detach()),
+                               rtol=1e-5)
+    cpu_tables = table_params(cpu)
+    for d, p in tables.items():
+        ref = cpu_tables[d].grad
+        assert float((grads[d].cpu() - ref).abs().max()) <= \
+            1e-5 * float(ref.abs().max())
+        acc = state.table_acc[f"dim{d}"]
+        p_ref, acc_ref = p0[d].clone(), acc0[d].clone()
+        kt.rowwise_adagrad_update_plain(p_ref, acc_ref, grads[d], lr=t.table_lr)
+        torch.cuda.synchronize()
+        assert _ulps(p.detach(), p_ref) == 0
+        torch.testing.assert_close(acc, acc_ref, rtol=1e-6, atol=0)
+        untouched = ~(grads[d] != 0).any(dim=1)
+        assert untouched.any()
+        assert torch.equal(p.detach()[untouched], p0[d][untouched])
+        assert torch.equal(acc[untouched], acc0[d][untouched])

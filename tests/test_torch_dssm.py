@@ -102,7 +102,9 @@ def test_build_network_resolves_reference_names_without_the_jax_package():
         model, restored = build_network(name, kw)
         assert type(model) is Dssm and restored is None
     assert type(build_network("two_tower", kw)[0]) is TwoTower
-    with pytest.raises(ImportError):
-        build_network("recommendflow_tpu.models.matching.pdm.Pdm", kw)
+    from recommendflow_tpu_torch.models.matching.pdm import Pdm
+    model, restored = build_network("recommendflow_tpu.models.matching.pdm.Pdm",
+                                    kw)
+    assert type(model) is Pdm and restored is None
     with pytest.raises(ImportError):
         build_network("no_such_model", kw)

@@ -63,7 +63,12 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "serving/client.py", "cli/encode.py", "cli/serve.py",
                    "retrieval/sq.py", "retrieval/ivf.py", "retrieval/pq.py",
                    "retrieval/factory.py", "retrieval/searcher.py",
-                   "retrieval/encoder_search.py"):
+                   "retrieval/encoder_search.py", "ops/fusion.py",
+                   "ops/pooling.py", "ops/matching.py",
+                   "models/matching/siamese_encoder.py",
+                   "models/matching/dssm_encoder.py",
+                   "models/matching/que2search.py", "models/matching/pdm.py",
+                   "models/matching/mobius.py"):
         assert os.path.join("recommendflow_tpu_torch", module) in rel, module
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
@@ -106,6 +111,25 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         pred_cli.main([tp.DEMO_CONF, "--data", str(tmp_path / "*.rfb"),
                        "--out", str(tmp_path / "o.npz")])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_matching_models_raise_without_a_card(monkeypatch):
+    _no_card(monkeypatch)
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.models import matching
+    text = Configuration(os.path.join(ROOT, "conf", "demo_text_recall.yaml"))
+    text.networks.update(user_encoder={"vocab_size": 256, "num_layers": 1,
+                                       "model_dim": 16},
+                         ad_encoder={"vocab_size": 256, "num_layers": 1,
+                                     "model_dim": 16})
+    recall = Configuration(tp.DEMO_CONF)
+    for cls, conf in ((matching.SiameseEncoder, text),
+                      (matching.DssmEncoder, text),
+                      (matching.Que2Search, text), (matching.Pdm, recall),
+                      (matching.Mobius, recall)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(conf)
+        assert not cls(conf, device="cpu").training
 
 
 def test_trainer_and_train_cli_raise_without_a_card(monkeypatch):
