@@ -306,23 +306,31 @@ def check_batch_ids(schema: BatchSchema, batch: Mapping[str, Any]
     raises. One maximum a slot over the slots' ids viewed as unsigned (a
     negative id reads as a huge one), in one numpy call: the check shares
     the interpreter with the thread that drives the card."""
-    ids = [(slot, np.asarray(batch[slot.name]).reshape(-1))
-           for slot in schema.sparse_slots() if slot.name in batch]
-    ids = [(slot, a) for slot, a in ids if a.size]
+    return check_ids_in_range(
+        {slot.name: slot.num_rows for slot in schema.sparse_slots()}, batch)
+
+
+def check_ids_in_range(num_rows: Mapping[str, int], batch: Mapping[str, Any]
+                       ) -> Mapping[str, Any]:
+    """`check_batch_ids` on a map of sparse feature name -> its table's row
+    count (what an exported model keeps of its schema)."""
+    ids = [(name, rows, np.asarray(batch[name]).reshape(-1))
+           for name, rows in num_rows.items() if name in batch]
+    ids = [(name, rows, a) for name, rows, a in ids if a.size]
     if not ids:
         return batch
-    flat = np.concatenate([a for _, a in ids])
+    flat = np.concatenate([a for _, _, a in ids])
     if not np.issubdtype(flat.dtype, np.integer):
         raise TypeError(f"sparse ids must be integers, got {flat.dtype}")
     unsigned = flat.view(np.dtype(f"u{flat.itemsize}"))
-    starts = np.cumsum([0] + [a.size for _, a in ids[:-1]])
-    rows = np.array([slot.num_rows for slot, _ in ids], dtype=unsigned.dtype)
+    starts = np.cumsum([0] + [a.size for _, _, a in ids[:-1]])
+    rows = np.array([r for _, r, _ in ids], dtype=unsigned.dtype)
     over = np.flatnonzero(np.maximum.reduceat(unsigned, starts) >= rows)
     if over.size:
-        slot, a = ids[over[0]]
-        bad = int(a[(a < 0) | (a >= slot.num_rows)][0])
-        raise IndexError(f"feature '{slot.name}': id {bad} outside its "
-                         f"table's {slot.num_rows} rows")
+        name, n_rows, a = ids[over[0]]
+        bad = int(a[(a < 0) | (a >= n_rows)][0])
+        raise IndexError(f"feature '{name}': id {bad} outside its "
+                         f"table's {n_rows} rows")
     return batch
 
 

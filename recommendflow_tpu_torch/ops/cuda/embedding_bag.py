@@ -20,6 +20,8 @@ The CUDA source, the bounds and the designs are in `csrc/embedding_bag.cu`.
 Each wrapper takes its plain version for CPU tensors only; for CUDA tensors it
 launches the kernel or raises. `<wrapper>.launches` counts launches,
 `gather_rows.launches_by_row_bytes` the same launches by row width.
+`gather_rows_op` (`torch.ops.recflow.gather_rows`) is the embed pass's gather
+as a torch custom op, which `torch.export` keeps as one node.
 """
 from __future__ import annotations
 
@@ -169,6 +171,31 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
 
 gather_rows.launches = 0
 gather_rows.launches_by_row_bytes = {}
+
+
+@torch.library.custom_op("recflow::gather_rows", mutates_args=(),
+                         device_types="cpu")
+def gather_rows_op(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`gather_rows` as a torch custom op, the embed pass's gather, so that an
+    exported program (`export/exporter.py`) records it as one node and runs
+    the kernel when it is loaded on a card. On the CPU: the range check
+    (IndexError) and the plain version. On a card: the kernel without the
+    host check (`launch_gather_rows(..., check_ids=False)`; the ids were
+    checked on the host before they were copied), counted in
+    `gather_rows.launches`. No other device has a kernel (meta tensors get
+    the fake impl's shapes, as in tracing)."""
+    check_id_range(ids, table.shape[0])
+    return gather_rows_plain(table, ids)
+
+
+@gather_rows_op.register_kernel("cuda")
+def _gather_rows_cuda(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return launch_gather_rows(table, ids, check_ids=False)
+
+
+@gather_rows_op.register_fake
+def _gather_rows_fake(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table.new_empty((ids.shape[0], table.shape[1]))
 
 
 def segment_row_grads(s: torch.Tensor, gs: torch.Tensor, *, num_rows: int

@@ -10,7 +10,9 @@ CUDA source, its bound and its design are in `csrc/flash_attention.cu`.
 
 `flash_attention` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises. `flash_attention.launches` counts
-launches.
+launches. A call that wants no gradient goes through the custom op
+`flash_attention_op` (`torch.ops.recflow.flash_attention`), which
+`torch.export` keeps as one node; so does `_FlashAttention`'s forward.
 
 The gradient on the card (`_FlashAttention`) is the vanilla maths' gradient,
 in plain torch: the JAX package has no backward kernel for its Pallas
@@ -140,6 +142,42 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+@torch.library.custom_op("recflow::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel forward as a torch custom op, so that an exported program
+    (`export/exporter.py`) records it as one node and launches the kernel
+    when it is loaded on a card. On the CPU: the plain version, in the
+    kernel's output layout (a [B, H, Lq, D] view of a contiguous
+    [B, Lq, H, D] buffer), so that the op's outputs have one layout on every
+    device, as the fake impl gives it. On a card: `launch_flash_attention`.
+    No gradient: `flash_attention` routes a call that wants one around it
+    (the plain version on the CPU, `_FlashAttention` on a card)."""
+    b, h, lq, d = q.shape
+    out = q.new_empty((b, lq, h, d)).transpose(1, 2)
+    return out.copy_(flash_attention_plain(q, k, v, mask))
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_cuda(q, k, v, mask=None):
+    return launch_flash_attention(q, k, v, mask)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, mask=None):
+    b, h, lq, d = q.shape
+    return q.new_empty((b, lq, h, d)).transpose(1, 2)
+
+
+def _forward(q, k, v, mask):
+    """The kernel forward: through the custom op for CPU and CUDA tensors;
+    `launch_flash_attention` refuses any other device."""
+    if q.device.type in ("cpu", "cuda"):
+        return flash_attention_op(q, k, v, mask)
+    return launch_flash_attention(q, k, v, mask)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The kernel forward with the vanilla maths' backward
     (`flash_attention_backward`)."""
@@ -147,7 +185,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask):
         ctx.save_for_backward(q, k, v, mask)
-        return launch_flash_attention(q, k, v, mask)
+        return _forward(q, k, v, mask)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -161,11 +199,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(q [B, H, Lq, D], k and v [B, H, Lk, D], mask [B, Lk] bool or None)
     -> [B, H, Lq, D] in q's dtype, f32 accumulation; differentiable in q, k
     and v (on the card through `_FlashAttention`)."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_plain(q, k, v, mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if all(t.device.type == "cpu" for t in (q, k, v)):
+            return flash_attention_plain(q, k, v, mask)
         return _FlashAttention.apply(q, k, v, mask)
-    return launch_flash_attention(q, k, v, mask)
+    return _forward(q, k, v, mask)
 
 
 flash_attention.launches = 0

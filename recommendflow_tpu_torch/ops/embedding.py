@@ -10,9 +10,11 @@ counterpart of `recommendflow_tpu/ops/embedding.py`).
     of [R, dim]: a lookup gathers logical rows of `table.view(-1, dim)` at the
     global ids — bit-identical to the JAX wide-row take followed by the
     one-hot segment select, and 128 bytes read per id instead of 512.
-  * The gather is `take_rows`: forward `gather_rows`, backward the sorted
-    duplicate sum (`segment_row_grads`) and `scatter_add_rows` into a zero
-    table (all three in ops/cuda/embedding_bag.py).
+  * The gather is `take_rows`: forward `gather_rows` through its custom op
+    (`torch.ops.recflow.gather_rows`, one node of an exported program),
+    backward the sorted duplicate sum (`segment_row_grads`) and
+    `scatter_add_rows` into a zero table (all three in
+    ops/cuda/embedding_bag.py).
     Masked pooling stays in torch.
   * The split-update trainer gathers stored rows itself, outside autograd,
     and hands them in under `rows_key(dim)`; `gather_group` then selects each
@@ -38,7 +40,7 @@ from recommendflow_tpu_torch.config.proto import FeaturePooling
 from recommendflow_tpu_torch.data.schema import (BatchSchema, FeatureSlot,
                                                  TableGroup)
 from recommendflow_tpu_torch.ops.cuda.embedding_bag import (
-    gather_rows, scatter_add_rows, segment_row_grads)
+    gather_rows_op, scatter_add_rows, segment_row_grads)
 
 NEG_INF = -1e9
 POS_INF = 1e9
@@ -114,7 +116,7 @@ class _TakeRows(torch.autograd.Function):
     def forward(ctx, table, ids):
         ctx.save_for_backward(ids)
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
-        return gather_rows(table, ids, check_ids=False)
+        return gather_rows_op(table, ids)
 
     @staticmethod
     def backward(ctx, g):
@@ -189,11 +191,20 @@ def rows_key(dim: int) -> str:
 
 
 @functools.lru_cache(maxsize=None)
+def _cached_offsets(offsets: Tuple[int, ...], dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(offsets, dtype=dtype, device=device)
+
+
 def _offsets_on(offsets: Tuple[int, ...], dtype: torch.dtype,
                 device: torch.device) -> torch.Tensor:
     """A slot's branch offsets as a tensor on `device`, copied once: a copy
-    from pageable host memory makes the host wait for the card's queue."""
-    return torch.as_tensor(offsets, dtype=dtype, device=device)
+    from pageable host memory makes the host wait for the card's queue.
+    While `torch.export` traces, a fresh tensor (a constant of the traced
+    program): the tracer's fake tensor must not enter the cache."""
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return torch.as_tensor(offsets, dtype=dtype, device=device)
+    return _cached_offsets(offsets, dtype, device)
 
 
 def _global_ids(schema: BatchSchema, slot: FeatureSlot,

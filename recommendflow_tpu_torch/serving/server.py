@@ -1,19 +1,23 @@
-"""Online serving: a stdlib HTTP server over the text encoder (the
-counterpart of `recommendflow_tpu/serving/server.py:32-315`).
+"""Online serving: a stdlib HTTP server over the text encoder and an
+exported model (the counterpart of `recommendflow_tpu/serving/server.py`).
 
   * POST /encode  {"texts": [...], "normalize": true}
         -> {"embeddings": [[...], ...], "dim": D}
     backed by a TextEncoderService (tokenize + encode on the card +
     whitening + LRU cache);
-  * POST /predict needs the `.rfx` model export, which the port does not
-    have yet: it answers 404 (LookupError) until the export slice;
+  * POST /predict {"batch": {feature: nested lists}}
+        -> {output name: nested lists}
+    backed by a ServingModel (`export/exporter.py`: a `torch.export` program
+    whose embedding ids are checked on the host, so an id outside its table
+    is a 400);
   * GET  /health  -> {"status": "ok", "device": ..., "card": ...,
                       "endpoints": [...]}.
 
-Threading model: ThreadingHTTPServer accepts concurrently; encode calls
-funnel through one lock (one batch on the card at a time, and the encoder's
-LRU cache is not thread-safe under concurrent mutation), and concurrent
-/encode requests are coalesced into one encode call by `_MicroBatcher`.
+Threading model: ThreadingHTTPServer accepts concurrently; encode and
+predict calls funnel through one lock (one batch on the card at a time, and
+the encoder's LRU cache is not thread-safe under concurrent mutation), and
+concurrent /encode requests are coalesced into one encode call by
+`_MicroBatcher`.
 """
 from __future__ import annotations
 
@@ -140,14 +144,15 @@ class _MicroBatcher:
 
 
 class EncodeServer:
-    """The encoder behind the HTTP endpoints, with the dispatch table."""
+    """The encoder and/or the serving model behind the HTTP endpoints, with
+    the dispatch table."""
 
-    def __init__(self, encoder, max_batch: int = 4096,
+    def __init__(self, encoder=None, serving_model=None, max_batch: int = 4096,
                  batch_window_ms: float = 4.0):
-        if encoder is None:
-            raise ValueError("need an encoder to serve (/predict waits for "
-                             "the model export)")
+        if encoder is None and serving_model is None:
+            raise ValueError("need an encoder and/or a serving model to serve")
         self.encoder = encoder
+        self.serving_model = serving_model
         self.max_batch = max_batch
         self._lock = threading.Lock()        # the card: one encode at a time
         self._count_lock = threading.Lock()  # counters only
@@ -161,25 +166,35 @@ class EncodeServer:
 
         self._batcher = (_MicroBatcher(_locked_encode, batch_window_ms,
                                        max_batch)
-                         if batch_window_ms > 0 else None)
+                         if encoder is not None and batch_window_ms > 0
+                         else None)
 
     # ----------------------------------------------------------- handlers
     def handle_health(self, _payload) -> Dict[str, Any]:
         import torch
-        dev = getattr(self.encoder, "device", None)
+        backend = self.encoder if self.encoder is not None \
+            else self.serving_model
+        dev = getattr(backend, "device", None)
         dev = torch.device(dev) if dev is not None else torch.device("cpu")
+        endpoints = ["/health"]
+        if self.encoder is not None:
+            endpoints.append("/encode")
+        if self.serving_model is not None:
+            endpoints.append("/predict")
         info = {"status": "ok",
                 "device": str(dev),
                 "card": (torch.cuda.get_device_name(dev)
                          if dev.type == "cuda" else None),
                 "requests_served": self.requests_served,
-                "endpoints": ["/health", "/encode"]}
+                "endpoints": endpoints}
         if self._batcher is not None:
             info["batches_run"] = self._batcher.batches_run
             info["requests_batched"] = self._batcher.requests_batched
         return info
 
     def handle_encode(self, payload) -> Dict[str, Any]:
+        if self.encoder is None:
+            raise LookupError("no encoder loaded on this server")
         texts = payload.get("texts")
         if not isinstance(texts, list) or not all(isinstance(t, str) for t in texts):
             raise ValueError("'texts' must be a list of strings")
@@ -199,8 +214,19 @@ class EncodeServer:
                 "dim": int(emb.shape[1]) if emb.ndim == 2 else 0}
 
     def handle_predict(self, payload) -> Dict[str, Any]:
-        raise LookupError("/predict needs the .rfx model export, which "
-                          "recommendflow_tpu_torch does not have yet")
+        if self.serving_model is None:
+            raise LookupError("no serving model loaded on this server")
+        batch_in = payload.get("batch")
+        if not isinstance(batch_in, dict):
+            raise ValueError("'batch' must be a dict of feature arrays")
+        batch = {k: np.asarray(v) for k, v in batch_in.items()}
+        sizes = {len(v) for v in batch.values() if v.ndim}
+        if sizes and max(sizes) > self.max_batch:
+            raise ValueError(f"batch too large ({max(sizes)} > {self.max_batch})")
+        with self._lock:
+            out = self.serving_model.predict(batch)
+            self.requests_served += 1
+        return {k: np.asarray(v).tolist() for k, v in out.items()}
 
     def dispatch(self, path: str, payload) -> Dict[str, Any]:
         table = {"/health": self.handle_health,

@@ -4,9 +4,10 @@ every phase at toy sizes through the plain versions (the serving slice, the
 training run of the three table-update modes, the ranking runs of Dcn and
 the other ranking models, TabTransformer's attention-ranking run with its
 gradient check, SiameseEncoder's text_recall run with its graft and
-gradient checks, the other matching models, the quantized and approximate
+gradient checks, the other matching models, the export and /predict
+serving of Dcn, TabTransformer and Dssm, the quantized and approximate
 searchers, the text encoder's encode and HTTP serving, the text search, the
-CLIs)."""
+CLIs with cli/export and cli/serve --model)."""
 import json
 import os
 import shutil
@@ -22,8 +23,9 @@ SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
 REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
              "flash_attention", "slice", "train", "ranking", "ranking_zoo",
-             "attention_ranking", "text_recall", "matching_zoo", "sq_search",
-             "ann", "encode", "serve", "text_search", "cli")
+             "attention_ranking", "text_recall", "matching_zoo",
+             "export_serve", "sq_search", "ann", "encode", "serve",
+             "text_search", "cli")
 
 
 def _run(args, cwd):
@@ -90,6 +92,21 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
     rcli = phases["cli"]["ranking_cli"]
     assert 0 <= rcli["train"]["val_auc"] <= 1 and 0 <= rcli["evaluate"]["auc"] <= 1
     assert rcli["predict_vs_model"] <= 1e-5
+    assert rcli["export_serve_predict_vs_predict_cli"] <= 1e-5
+    xs = phases["export_serve"]
+    assert sorted(xs["models"]) == ["Dcn", "Dssm", "TabTransformer"]
+    nodes = {name: m["custom_op_nodes"] for name, m in xs["models"].items()}
+    assert nodes == {"Dcn": {"recflow::gather_rows": 1},
+                     "TabTransformer": {"recflow::gather_rows": 1,
+                                        "recflow::flash_attention": 2},
+                     "Dssm": {"recflow::gather_rows": 2}}
+    for m in xs["models"].values():
+        assert m["max_abs_vs_eager"] == 0.0 and m["artifact_mb"] > 0
+        assert m["export_s"] > 0 and m["load_s"] > 0
+    assert xs["models"]["Dssm"]["outputs"] == ["ad", "user"]   # no label echo
+    assert xs["http"]["health"]["endpoints"] == ["/health", "/predict"]
+    assert xs["http"]["bitwise"] is True and xs["http"]["bad_id_code"] == 400
+    assert xs["cpu_vs_card_logit"] <= xs["cpu_tolerance"]
     rank = phases["ranking"]
     assert sorted(rank["runs"]) == ["auto", "auto_zipf1.2", "dense",
                                     "sparse_set", "warm"]

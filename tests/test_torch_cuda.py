@@ -1187,3 +1187,47 @@ def test_que2search_dense_step_matches_the_plain_update(cuda):
         assert untouched.any()
         assert torch.equal(p.detach()[untouched], p0[d][untouched])
         assert torch.equal(acc[untouched], acc0[d][untouched])
+
+
+@pytest.mark.parametrize("cls,ops", [
+    ("ranking.dcn.Dcn", {"recflow::gather_rows": 1}),
+    ("ranking.tabtransformer.TabTransformer",
+     {"recflow::gather_rows": 1, "recflow::flash_attention": 2})])
+def test_export_on_the_card_equals_eager_and_launches_the_kernels(
+        cuda, cls, ops, tmp_path):
+    """A demo_ranking model exported on the card, saved and loaded there:
+    the program holds the kernels' custom-op nodes and launches them, its
+    outputs equal the eager model's bitwise (the same kernels and ATen ops),
+    and the same artifact loaded on the CPU agrees within 1e-4 (the ranking
+    logits' card-vs-CPU rule)."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.export import (ServingModel, custom_op_nodes,
+                                                export_model)
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as kr
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as kf
+    conf = Configuration(f"{tp.ROOT}/conf/demo_ranking.yaml")
+    model, _ = build_network(f"recommendflow_tpu.models.{cls}",
+                             {"conf": conf, "device": cuda, "seed": 0})
+    batch = synthetic_batch(model.schema, 64, seed=9)
+    labels = model.schema.label_names
+    serve = {k: v for k, v in batch.items() if k not in labels}
+    consts = {k: np.zeros_like(batch[k]) for k in labels}
+    path = export_model(model, serve, str(tmp_path / "m"), constants=consts)
+    sm = ServingModel.load(path, device="cuda")
+    assert custom_op_nodes(sm.program) == ops
+    before = (kr.gather_rows.launches, kf.flash_attention.launches)
+    got = sm.predict(serve)
+    torch.cuda.synchronize()
+    launched = (kr.gather_rows.launches - before[0],
+                kf.flash_attention.launches - before[1])
+    assert launched == (ops["recflow::gather_rows"],
+                        ops.get("recflow::flash_attention", 0))
+    with torch.no_grad():
+        want = model.eval()({k: v.to(cuda) for k, v in
+                             tp.to_torch({**serve, **consts}).items()})
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k].cpu().numpy(), err_msg=k)
+    cpu = ServingModel.load(path, device="cpu").predict(serve)
+    np.testing.assert_allclose(cpu["logit"], got["logit"], rtol=0, atol=1e-4)

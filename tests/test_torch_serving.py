@@ -1,6 +1,7 @@
 """The port's HTTP serving on the CPU: /health, /encode, the error codes, the
-micro-batcher, /predict (404 until the model export), the remote client,
-and the `cli.encode` / `cli.serve` entry points with --device cpu."""
+micro-batcher, /predict over an exported model (a demo Dcn exported on the
+CPU), the remote client, and the `cli.encode` / `cli.serve` entry points
+with --device cpu."""
 import json
 import threading
 import urllib.error
@@ -96,15 +97,95 @@ def test_encode_and_errors(server):
     assert _code(lambda: urllib.request.urlopen(req, timeout=10)) == 413
 
 
-def test_predict_waits_for_the_export(server):
-    req = urllib.request.Request(server + "/predict", data=b'{"batch": {}}',
-                                 method="POST")
+@pytest.fixture(scope="module")
+def dcn_export(tmp_path_factory):
+    """(path, batch): conf/demo_ranking.yaml's Dcn exported on the CPU at a
+    serving batch of 4 rows, labels baked in as zeroed constants, and a
+    serving batch of that shape."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.export import export_model
+    from recommendflow_tpu_torch.models.ranking.dcn import Dcn
+    model = Dcn(Configuration(f"{tp.ROOT}/conf/demo_ranking.yaml"),
+                hidden_units=[32], device="cpu")
+    batch = synthetic_batch(model.schema, 4, seed=2)
+    labels = model.schema.label_names
+    serve = {k: v for k, v in batch.items() if k not in labels}
+    path = export_model(model, serve, str(tmp_path_factory.mktemp("dcn") / "m"),
+                        constants={k: np.zeros_like(batch[k]) for k in labels})
+    return path, serve
+
+
+def _post_json(url, path, body: bytes):
+    req = urllib.request.Request(url + path, data=body, method="POST")
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(req, timeout=10)
-    assert e.value.code == 404
-    assert "model export" in json.loads(e.value.read())["error"]
-    with pytest.raises(ValueError, match="need an encoder"):
+    return e.value.code, json.loads(e.value.read())["error"]
+
+
+def test_predict_waits_for_the_export(server, dcn_export):
+    """/predict answers from an exported model: the encoder-only server has
+    none (404), a server given a ServingModel answers with its outputs
+    bitwise (the JSON round trip of f32 is exact) and, with no encoder,
+    answers /encode with 404; a server with neither backend is refused."""
+    from recommendflow_tpu_torch.serving import ServingModel
+    code, err = _post_json(server, "/predict", b'{"batch": {}}')
+    assert code == 404 and "no serving model" in err
+    with pytest.raises(ValueError, match="need an encoder and/or a serving"):
         EncodeServer(None)
+    path, batch = dcn_export
+    sm = ServingModel.load(path, device="cpu")
+    backend, httpd, url = _serve(None, serving_model=sm, max_batch=16)
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=10) as r:
+            h = json.loads(r.read())
+        assert h["endpoints"] == ["/health", "/predict"] and h["device"] == "cpu"
+        out = _post(url, "/predict",
+                    {"batch": {k: v.tolist() for k, v in batch.items()}})
+        want = sm.predict(batch)
+        assert sorted(out) == sorted(want) == ["label", "logit", "score"]
+        for k, v in want.items():
+            got = np.asarray(out[k], dtype=v.dtype)
+            assert np.array_equal(got.view(np.uint32), v.view(np.uint32)), k
+        code, err = _post_json(url, "/encode", b'{"texts": ["a"]}')
+        assert code == 404 and "no encoder" in err
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        backend.close()
+
+
+def test_predict_bad_bodies_are_400(dcn_export):
+    """The client's mistakes answer 400, as in the JAX package's
+    tests/test_serving.py: 'batch' not a dict, too many rows, a wrong shape,
+    a missing input, an id outside its table (checked on the host); the
+    next request is answered."""
+    from recommendflow_tpu_torch.serving import ServingModel
+    path, batch = dcn_export
+    sm = ServingModel.load(path, device="cpu")
+    backend, httpd, url = _serve(None, serving_model=sm, max_batch=3)
+    body = {k: v.tolist() for k, v in batch.items()}
+    try:
+        bad_id = dict(body, user_id=(batch["user_id"] + 10 ** 6).tolist())
+        cases = {"not a dict": {"batch": [1, 2]},
+                 "too many rows": {"batch": body},
+                 "missing input": {"batch": {"user_id": body["user_id"]}}}
+        for what, payload in cases.items():
+            code, _ = _post_json(url, "/predict", json.dumps(payload).encode())
+            assert code == 400, what
+        backend.max_batch = 16
+        short = dict(body, user_id=body["user_id"][:2])
+        for what, payload in (("shape", short), ("'user_id'", bad_id)):
+            code, err = _post_json(url, "/predict",
+                                   json.dumps({"batch": payload}).encode())
+            assert code == 400 and what in err
+        out = _post(url, "/predict", {"batch": body})
+        np.testing.assert_array_equal(np.asarray(out["score"], np.float32),
+                                      sm.predict(batch)["score"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        backend.close()
 
 
 def test_nonfinite_output_is_500():
@@ -242,7 +323,7 @@ def test_encode_cli_on_the_cpu(tmp_path):
     np.testing.assert_allclose(emb, ref, rtol=0, atol=1e-6)
 
 
-def test_serve_cli_on_the_cpu(tmp_path):
+def test_serve_cli_on_the_cpu(tmp_path, dcn_export):
     from recommendflow_tpu_torch.cli import serve as serve_cli
     vocab = _vocab_file(tmp_path)
     args = ["--vocab", vocab, "--host", "127.0.0.1", "--port", "0",
@@ -262,7 +343,39 @@ def test_serve_cli_on_the_cpu(tmp_path):
         httpd.shutdown()
         httpd.server_close()
         backend.close()
-    with pytest.raises(NotImplementedError, match="model export"):
-        serve_cli.build(args + ["--model", str(tmp_path / "m.rfx")])
+    # --model beside --vocab serves both endpoints
+    backend, httpd = serve_cli.build(args + ["--model", dcn_export[0]])
+    try:
+        assert backend.handle_health({})["endpoints"] == [
+            "/health", "/encode", "/predict"]
+    finally:
+        httpd.server_close()
+        backend.close()
     with pytest.raises(SystemExit):
         serve_cli.build(["--device", "cpu"])
+
+
+def test_serve_cli_with_a_model_on_the_cpu(dcn_export):
+    """--model alone: /predict from the export (warmed before the bind),
+    /encode 404."""
+    from recommendflow_tpu_torch.cli import serve as serve_cli
+    from recommendflow_tpu_torch.serving import ServingModel
+    path, batch = dcn_export
+    backend, httpd = serve_cli.build(["--model", path, "--host", "127.0.0.1",
+                                      "--port", "0", "--device", "cpu"])
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=10) as r:
+            assert json.loads(r.read())["endpoints"] == ["/health", "/predict"]
+        out = _post(url, "/predict",
+                    {"batch": {k: v.tolist() for k, v in batch.items()}})
+        np.testing.assert_array_equal(
+            np.asarray(out["score"], np.float32),
+            ServingModel.load(path, device="cpu").predict(batch)["score"])
+        code, _ = _post_json(url, "/encode", b'{"texts": ["a"]}')
+        assert code == 404
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        backend.close()
