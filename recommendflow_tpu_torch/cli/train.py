@@ -9,9 +9,11 @@ cli/predict and cli/evaluate take as --checkpoint:
     python -m recommendflow_tpu_torch.cli.train conf/demo_recall.yaml \
         --data 'records/*.rfb' [--train_mode test] [--device cpu] ...
 
-Flags that need a later slice of the port raise (--shard_tables,
---preempt_dir, --lr_schedule); --no_mesh is accepted and changes nothing
-(one card, no mesh).
+--lr_schedule (cosine | linear | warmup_constant, peak --lr) with
+--warmup_steps and --decay_steps re-derives the dense LR every step, so
+ReduceLROnPlateau is left out while it is active. Flags that need a later
+slice of the port raise (--shard_tables, --preempt_dir); --no_mesh is
+accepted and changes nothing (one card, no mesh).
 """
 from __future__ import annotations
 
@@ -32,7 +34,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--lr_schedule", default=None,
                    choices=["cosine", "linear", "warmup_constant"],
-                   help="not ported yet (ROADMAP Queue 1, item 2)")
+                   help="per-step LR schedule (peak = --lr)")
+    p.add_argument("--warmup_steps", type=int, default=0)
+    p.add_argument("--decay_steps", type=int, default=100_000)
     p.add_argument("--valid_ratio", type=float, default=0.1)
     p.add_argument("--topk", default="5,10,50,100", help="eval K list")
     p.add_argument("--train_mode", default="normal", help="'test' = 10-batch debug run")
@@ -49,9 +53,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no_mesh", action="store_true",
                    help="accepted; the port trains on one card without a mesh")
     p.add_argument("--preempt_dir", default=None,
-                   help="not ported yet (ROADMAP Queue 1, item 2)")
+                   help="not ported yet (ROADMAP Queue 1: preemption)")
     p.add_argument("--shard_tables", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1, item 7)")
+                   help="not ported yet (ROADMAP Queue 1: parallel)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -59,12 +63,11 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     print_args(args)
-    for flag, item in (("shard_tables", "item 7, parallel"),
-                       ("preempt_dir", "item 2, preemption"),
-                       ("lr_schedule", "item 2, make_lr_schedule")):
+    for flag, feature in (("shard_tables", "parallel, row-sharded tables"),
+                          ("preempt_dir", "preemption")):
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP Queue 1, {item})")
+                f"--{flag} is not ported yet (ROADMAP Queue 1: {feature})")
 
     from recommendflow_tpu_torch.config import Configuration
     from recommendflow_tpu_torch.data.pipeline import make_dataset
@@ -100,7 +103,11 @@ def main(argv=None):
     model, _ = build_network(conf.networks["class"],
                              {"conf": conf, "loss": loss_name, "device": dev,
                               "seed": args.seed})
-    trainer = Trainer(model, learning_rate=args.lr, device=dev, seed=args.seed)
+    schedule = ({"type": args.lr_schedule, "warmup_steps": args.warmup_steps,
+                 "decay_steps": args.decay_steps}
+                if args.lr_schedule else None)
+    trainer = Trainer(model, learning_rate=args.lr, lr_schedule=schedule,
+                      device=dev, seed=args.seed)
 
     topk = str2list(args.topk, trans_type=int)
     monitor = args.monitor
@@ -115,8 +122,14 @@ def main(argv=None):
     callbacks = [
         EvalCallback(make_recall_evaluator(valid_ds or train_ds, topk_list=topk)),
         EarlyStopping(monitor=monitor, patience=args.patience),
-        ReduceLROnPlateau(monitor=monitor, patience=max(args.patience - 1, 1)),
     ]
+    if args.lr_schedule:
+        # the schedule re-derives the LR every step: the plateau callback's
+        # set_learning_rate would have no effect
+        print("note: --lr_schedule active; ReduceLROnPlateau disabled")
+    else:
+        callbacks.append(ReduceLROnPlateau(monitor=monitor,
+                                           patience=max(args.patience - 1, 1)))
     save_root = args.model_save_root or conf.get_conf_value_or("model_save_root")
     if save_root and not debug:
         callbacks.append(ModelCheckpoint(os.path.join(save_root, "ckpt"),

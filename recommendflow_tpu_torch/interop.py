@@ -27,11 +27,15 @@ Embed modules:
                                            tok_emb too)
   params/pos_emb                        -> pos_emb (a bare parameter, as is)
 
-AttentionFusion's `stats` collection (ops/fusion.py) maps onto its buffers,
+AttentionFusion's `stats` collection (ops/fusion.py) and the logQ
+correction's `freq` collection (models/base.py:FreqEstimator) map onto
+their buffers,
 and an image slot's patch projection and ViT (models/base.py) onto the
 embedder's parameter and submodule of the same names:
 
   stats/<m>/{infer_weights, infer_count} -> <m>.{infer_weights, infer_count}
+  freq/state/{last_step, interval}      -> freq.{last_step, interval}
+  freq/step                             -> freq.step
   params/embedder/img_proj_<name>       -> embedder.img_proj_<name> (as is)
   params/embedder/vit_<name>/{patch_proj, cls, pos_emb, emb_ln, block{i}, head}
                                         -> embedder.vit_<name>.…
@@ -46,11 +50,12 @@ what `np.savez(path, **flax.traverse_util.flatten_dict(variables, sep="/"))`
 writes from the JAX side.
 
 A training state crosses as a plain tree of numpy arrays (what the JAX side
-reads off its TrainState: `params`, `batch_stats`, the split path's
-`table_acc`, or the optax row-wise Adagrad accumulators of the dense path,
-and the dense leaves' Adam moments):
+reads off its TrainState: `params`, `batch_stats`, the split or sparse
+path's `table_acc` and the optax row-wise Adagrad accumulators of the
+tables on the dense path, and the dense leaves' Adam moments):
 
-  {"params": ..., "batch_stats": ..., "stats": ... (where the model has it),
+  {"params": ..., "batch_stats": ..., "stats" and "freq": ... (where the
+   model has them),
    "table_acc": {"dim{d}": [R/P, 1] f32},
    "opt": {"mu": params tree of the dense leaves, "nu": likewise,
            "count": int},
@@ -74,7 +79,8 @@ _EMBED = {"embedding": "weight"}
 _BN_PARAMS = {"scale": "weight", "bias": "bias"}
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS = ("infer_weights", "infer_count")   # AttentionFusion's statistics
-COLLECTIONS = ("params", "batch_stats", "stats")
+_FREQ_STATE = ("last_step", "interval")     # FreqEstimator's per-bucket state
+COLLECTIONS = ("params", "batch_stats", "stats", "freq")
 
 
 def _is_bf16(arr: np.ndarray) -> bool:
@@ -136,6 +142,8 @@ def _leaf_names(owner: str) -> Dict[str, str]:
 def _torch_key(path: Tuple[str, ...]) -> str:
     collection, *mods, leaf = path
     owner = mods[-1] if mods else ""
+    if collection == "freq":
+        return f"freq.{leaf}"
     if owner.startswith("BatchNorm"):
         leaf = (_BN_PARAMS if collection == "params" else _BN_STATS)[leaf]
     elif collection == "stats" and leaf in _STATS:
@@ -170,6 +178,10 @@ def jax_from_variables(state: Mapping[str, torch.Tensor],
         *mods, leaf = key.split(".")
         owner = mods[-1] if mods else ""
         arr = to_numpy(t, bf16_dtype)
+        if mods == ["freq"]:
+            flat[("freq", "state", leaf) if leaf in _FREQ_STATE
+                 else ("freq", leaf)] = arr
+            continue
         if owner.startswith("BatchNorm"):
             collection, name = inv_bn[leaf]
             flat[(collection, *mods, name)] = arr
@@ -223,7 +235,12 @@ def load_variables_npz(path: str) -> Tree:
 
 
 def _dense_params(state) -> Dict[str, torch.nn.Parameter]:
-    """name -> parameter for every parameter the optimizer updates."""
+    """name -> parameter for every parameter the optimizer updates. The tree
+    carries the default optimizer's Adam moments only (a user-chosen
+    `OptaxOptimizer` keeps another state: TypeError)."""
+    if not isinstance(state.optimizer, torch.optim.Adam):
+        raise TypeError(f"the training-state tree carries torch.optim.Adam's "
+                        f"moments, not {type(state.optimizer).__name__}'s")
     mine = {id(p) for g in state.optimizer.param_groups for p in g["params"]}
     return {n: p for n, p in state.model.named_parameters() if id(p) in mine}
 

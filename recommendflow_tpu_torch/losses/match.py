@@ -24,7 +24,7 @@ def _gather_negatives(query, doc, axis_name: Optional[str]):
     if axis_name is not None:
         raise NotImplementedError(
             "axis_name (in-batch negatives gathered across cards) arrives "
-            "with the parallel slice (ROADMAP Queue 1, item 7)")
+            "with the parallel slice (ROADMAP Queue 1: parallel)")
     return doc, torch.arange(query.shape[0], device=query.device)
 
 

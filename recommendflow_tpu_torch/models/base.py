@@ -28,6 +28,7 @@ from recommendflow_tpu_torch.ops.embedding import (IMAGE_PATCH, _global_ids,
                                                    gather_group,
                                                    init_group_table)
 from recommendflow_tpu_torch.ops.mlp import ExpertsDense
+from recommendflow_tpu_torch.train.freq import freq_init, freq_update, log_q
 from recommendflow_tpu_torch.utils.str_parser import str2fn
 
 Batch = Dict[str, torch.Tensor]
@@ -138,6 +139,25 @@ def init_dense_(module: nn.Module, generator: torch.Generator) -> None:
                     m.bias.zero_()
 
 
+class FreqEstimator(nn.Module):
+    """The logQ correction's streaming frequency state (train/freq.py) as
+    buffers, so state_dict, checkpoints and the trainer's buffer restore
+    carry it: last_step [buckets] int32, interval [buckets] f32 and the
+    stream's step [] int32 (the JAX package's 'freq' collection:
+    freq/state/{last_step, interval} and freq/step)."""
+
+    def __init__(self, buckets: int, device=None):
+        super().__init__()
+        state = freq_init(buckets, device)
+        self.register_buffer("last_step", state["last_step"])
+        self.register_buffer("interval", state["interval"])
+        self.register_buffer("step", torch.zeros((), dtype=torch.int32,
+                                                 device=device))
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        return {"last_step": self.last_step, "interval": self.interval}
+
+
 class RecModel(nn.Module):
     """Base class: wires Configuration -> schema and resolves the loss (a
     callable or a dotted name, default Networks.loss)."""
@@ -158,10 +178,6 @@ class RecModel(nn.Module):
         schema.table_dtype = str(conf.networks.get("table_dtype", "float32"))
         schema.image_encoder = str(conf.networks.get("image_encoder", "linear"))
         self.schema = schema
-        if self.network_conf("logq_feature"):
-            raise NotImplementedError(
-                "Networks.logq_feature (sampled-softmax logQ correction) "
-                "is not ported yet (ROADMAP Queue 1, train/freq.py)")
 
     def resolve_loss(self) -> Callable:
         """The loss callable (resolved once: the training forward calls this
@@ -173,6 +189,37 @@ class RecModel(nn.Module):
                 raise ValueError("no loss given (model arg or Networks.loss)")
             self._loss_fn = str2fn(loss) if isinstance(loss, str) else loss
         return self._loss_fn
+
+    def init_logq(self, device=None) -> None:
+        """Under `Networks.logq_feature` (a sparse item feature), the
+        frequency state `freq` of `logq_correction`, with
+        `Networks.logq_buckets` buckets (default 1 << 20). A model that
+        calls logq_correction builds it in its constructor."""
+        if self.network_conf("logq_feature"):
+            buckets = int(self.network_conf("logq_buckets") or (1 << 20))
+            self.freq = FreqEstimator(buckets, device)
+
+    def logq_correction(self, batch: Batch) -> Optional[torch.Tensor]:
+        """The sampled-softmax bias correction's input (Yi et al. 2019): the
+        batch docs' log q [B] for the loss's `logq=`, from the streaming
+        frequency estimate over the first id of `Networks.logq_feature` per
+        example (modulo the bucket count), or None when unconfigured. The
+        estimate is read before this batch; a training forward then
+        advances the stream by one step (`Networks.logq_alpha`, default
+        0.05). Evaluation leaves it as it is."""
+        feat = self.network_conf("logq_feature")
+        if not feat:
+            return None
+        ids = batch[feat].reshape(batch[feat].shape[0], -1)[:, 0] \
+            % self.freq.last_step.shape[0]
+        lq = log_q(self.freq.state(), ids)
+        if self.training:
+            alpha = float(self.network_conf("logq_alpha") or 0.05)
+            with torch.no_grad():
+                self.freq.step.add_(1)
+                freq_update(self.freq.state(), ids, self.freq.step,
+                            alpha=alpha)
+        return lq
 
     def token_max_len(self, default: int = 64) -> int:
         """Longest token feature in the schema: sizes a TextEncoder's max_len

@@ -24,7 +24,9 @@ from recommendflow_tpu_torch.ops.mlp import MLP, l2_normalize
 class Dssm(RecModel):
     """Two-tower DSSM. Networks config keys: tower_units (default
     [1024, 512, 256]), dropout, activation, embedding_dim (final projection
-    width, 0 = last tower unit).
+    width, 0 = last tower unit), compute_dtype (the towers' MLP dtype, e.g.
+    bfloat16), logq_feature / logq_buckets / logq_alpha (the loss's
+    sampling-bias correction, `RecModel.logq_correction`).
 
     Built on `device` (default "cuda"; raises without a card unless "cpu" is
     asked for) with weights drawn from a torch.Generator seeded by `seed`.
@@ -52,6 +54,7 @@ class Dssm(RecModel):
                             final_activation="linear",
                             compute_dtype=compute_dtype, device=dev)
         init_dense_(self, gen)
+        self.init_logq(dev)
         self.eval()
 
     def _units(self) -> Sequence[int]:
@@ -73,7 +76,10 @@ class Dssm(RecModel):
         if y_true is None:
             y_true = torch.ones(u.shape[0], dtype=u.dtype, device=u.device)
         if self.training:
-            loss = self.resolve_loss()(y_true, u, a)
+            logq = self.logq_correction(batch)
+            loss_fn = self.resolve_loss()
+            loss = loss_fn(y_true, u, a) if logq is None else \
+                loss_fn(y_true, u, a, logq=logq)
             pos_cos = torch.sum(torch.sum(u * a, dim=1) * y_true) \
                 / torch.clamp(torch.sum(y_true), min=1.0)
             return loss, {"pos_cos": pos_cos}

@@ -198,6 +198,31 @@ def _gather_rows_fake(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table.new_empty((ids.shape[0], table.shape[1]))
 
 
+def unique_sorted(s: torch.Tensor, *, num_rows: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The unique ids of SORTED ids, at a fixed size: s [N] sorted int ids
+    (N > 0) -> (uid [N] int32: the unique ids in order, then the DISTINCT
+    out-of-range ids num_rows + i, so the vector stays sorted and unique,
+    valid [N] bool, n_valid [1] int32 on the device, seg [N]: each entry's
+    index in uid). Every shape is fixed by N: nothing here reads a value
+    back to the host, where `torch.unique`'s output size would make the host
+    wait for the card."""
+    n = s.shape[0]
+    dev = s.device
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = s[1:] != s[:-1]
+    seg = torch.cumsum(first, 0) - 1                  # [N] segment index
+    # every member of a segment writes the same id: the result is exact
+    uid = torch.zeros(n, dtype=torch.int32, device=dev).scatter_(
+        0, seg, s.to(torch.int32))
+    n_valid = (seg[-1:] + 1).to(torch.int32)
+    pos = torch.arange(n, device=dev)
+    valid = pos < n_valid
+    uid = torch.where(valid, uid, (num_rows + pos).to(torch.int32))
+    return uid, valid, n_valid, seg
+
+
 def segment_row_grads(s: torch.Tensor, gs: torch.Tensor, *, num_rows: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
@@ -207,28 +232,17 @@ def segment_row_grads(s: torch.Tensor, gs: torch.Tensor, *, num_rows: int
     JAX package).
 
     s [N] sorted int ids, gs [N, W] f32 grads in the same order ->
-    (summed [N, W] f32 with zero padding rows, uid [N] int32: real segments
-    hold the row id, padding segments the DISTINCT out-of-range ids
-    num_rows + i, so the vector stays sorted and unique, valid [N] bool,
-    n_valid [1] int32 on the device). Every shape is fixed by N: nothing
-    here reads a value back to the host."""
+    (summed [N, W] f32 with zero padding rows, uid [N] int32, valid [N] bool
+    and n_valid [1] int32 on the device, as `unique_sorted` gives them).
+    Nothing here reads a value back to the host."""
     n = s.shape[0]
     dev = s.device
     if n == 0:
         return (gs.new_zeros(gs.shape), s.to(torch.int32),
                 torch.zeros(0, dtype=torch.bool, device=dev),
                 torch.zeros(1, dtype=torch.int32, device=dev))
-    first = torch.ones(n, dtype=torch.bool, device=dev)
-    first[1:] = s[1:] != s[:-1]
-    seg = torch.cumsum(first, 0) - 1                  # [N] segment index
+    uid, valid, n_valid, seg = unique_sorted(s, num_rows=num_rows)
     summed = torch.zeros_like(gs).index_add_(0, seg, gs)
-    # every member of a segment writes the same id: the result is exact
-    uid = torch.zeros(n, dtype=torch.int32, device=dev).scatter_(
-        0, seg, s.to(torch.int32))
-    n_valid = (seg[-1:] + 1).to(torch.int32)
-    pos = torch.arange(n, device=dev)
-    valid = pos < n_valid
-    uid = torch.where(valid, uid, (num_rows + pos).to(torch.int32))
     return summed, uid, valid, n_valid
 
 

@@ -25,6 +25,9 @@ def dice(x: torch.Tensor, axis: int = 0, alpha: float = 0.0,
     return p * x + alpha * (1.0 - p) * x
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
 _ACTIVATIONS = {
     "relu": F.relu, "selu": F.selu,
     # flax's nn.gelu defaults to the tanh approximation
@@ -35,6 +38,20 @@ _ACTIVATIONS = {
     "leaky_relu": lambda x: F.leaky_relu(x, 0.01), "dice": dice,
     "linear": lambda x: x, "none": lambda x: x,
 }
+
+
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_SCALE = 1.0507009873554804934193349852946
+
+
+def selu_in(dtype: torch.dtype) -> Callable:
+    """flax's nn.selu in `dtype`: scale * where(x > 0, x, alpha * expm1(x)),
+    every operation rounded to the dtype and both constants rounded to it
+    first, as JAX rounds a Python constant to the array's dtype (F.selu
+    keeps them exact: 3 bf16 ulps away on bf16 inputs)."""
+    scale, alpha = (float(torch.tensor(c).to(dtype))
+                    for c in (_SELU_SCALE, _SELU_ALPHA))
+    return lambda x: scale * torch.where(x > 0, x, alpha * torch.expm1(x))
 
 
 def get_activation(name: Union[str, Callable]) -> Callable:
@@ -54,7 +71,10 @@ class BatchNorm(nn.Module):
     E[x^2] - E[x]^2 (clipped at 0), and move the running statistics as
     `momentum * running + (1 - momentum) * batch` (flax's momentum: 0.99
     keeps 99%). Eval: normalise with the running statistics. Both compute
-    (x - mean) * (rsqrt(var + eps) * weight) + bias, as flax does; with
+    (x - mean) * (rsqrt(var + eps) * weight) + bias, as flax does. An
+    input of another dtype (an MLP's compute_dtype) is normalised in f32
+    and the output cast back to its dtype (flax's BatchNorm with `dtype`:
+    f32 statistics). With
     use_scale / use_bias off (flax's flags) the module has no weight / bias,
     so its state dict holds only what the flax tree has.
     `nn.BatchNorm1d` cannot stand in: it moves the running variance with the
@@ -73,6 +93,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = x.dtype
+        if out_dtype in (torch.bfloat16, torch.float16):
+            x = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(dim=axes)
@@ -87,7 +110,8 @@ class BatchNorm(nn.Module):
         if self.weight is not None:
             mul = mul * self.weight
         y = (x - mean) * mul
-        return y + self.bias if self.bias is not None else y
+        y = y + self.bias if self.bias is not None else y
+        return y.to(out_dtype)
 
 
 class Dice(nn.Module):
@@ -111,7 +135,13 @@ class Dice(nn.Module):
 class MLP(nn.Module):
     """[norm -> dense -> activation -> dropout] x len(units).
 
-    BatchNorm follows flax (see `BatchNorm`): epsilon 1e-6, momentum 0.99."""
+    BatchNorm follows flax (see `BatchNorm`): epsilon 1e-6, momentum 0.99.
+    compute_dtype (e.g. "bfloat16"): the input is cast to it, each Dense
+    multiplies in it with its f32 parameters cast to it (flax's
+    `nn.Dense(dtype=...)`: product, then bias, each rounded to the dtype),
+    BatchNorm normalises in f32 and returns the dtype, the activations run
+    in it (selu with its constants in the dtype, `selu_in`), and the output
+    is cast back to f32. The parameters stay f32."""
 
     def __init__(self, in_features: int, units: Sequence[int],
                  dropout: float = 0.0, activation: str = "relu",
@@ -120,14 +150,17 @@ class MLP(nn.Module):
                  compute_dtype: Optional[str] = None,
                  device: Union[str, torch.device, None] = None):
         super().__init__()
-        if compute_dtype:
-            raise NotImplementedError(
-                "compute_dtype is not supported yet (it is off in every "
-                "shipped config)")
+        self.compute_dtype = _DTYPES[str(compute_dtype)] if compute_dtype \
+            else None
         self.units = list(units)
         self.use_bn = use_bn
-        self.act = get_activation(activation)
-        self.final_act = (get_activation(final_activation)
+
+        def act(name):
+            if self.compute_dtype is not None and name == "selu":
+                return selu_in(self.compute_dtype)
+            return get_activation(name)
+        self.act = act(activation)
+        self.final_act = (act(final_activation)
                           if final_activation is not None else self.act)
         self.drop = nn.Dropout(dropout) if dropout > 0 else None
         width = in_features
@@ -140,14 +173,21 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.units)
+        dtype = self.compute_dtype
+        if dtype is not None:
+            x = x.to(dtype)
         for i in range(n):
             if self.use_bn:
                 x = getattr(self, f"BatchNorm_{i}")(x)
-            x = getattr(self, f"Dense_{i}")(x)
+            dense = getattr(self, f"Dense_{i}")
+            if dtype is None:
+                x = dense(x)
+            else:
+                x = F.linear(x, dense.weight.to(dtype)) + dense.bias.to(dtype)
             x = self.final_act(x) if i == n - 1 else self.act(x)
             if self.drop is not None:
                 x = self.drop(x)
-        return x
+        return x.float() if dtype is not None else x
 
 
 class ExpertsDense(nn.Module):

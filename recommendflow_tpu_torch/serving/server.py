@@ -276,9 +276,15 @@ class _Handler(BaseHTTPRequestHandler):
         # bad requests are the client's fault, not a 500
         try:
             self._reply(200, self.backend.dispatch(path, payload))
+        except KeyError as e:
+            # a missing input of /predict (ServingModel.predict): the
+            # client's body, not the path. KeyError is a LookupError, so it
+            # must be answered before the 404 clause (the JAX server answers
+            # it 404)
+            self._reply(400, {"error": str(e)})
         except LookupError as e:
             self._reply(404, {"error": str(e)})
-        except (ValueError, KeyError, TypeError) as e:
+        except (ValueError, TypeError) as e:
             self._reply(400, {"error": str(e)})
         except Exception as e:  # noqa: BLE001 — serving must not die
             self._reply(500, {"error": str(e)})

@@ -11,18 +11,26 @@ A step runs eagerly on the card:
      [N, P*dim] row gradients and no table gradient;
   2. forward (training mode: BatchNorm batch statistics, dropout) -> loss;
      backward;
-  3. Adam on the dense parameters (the tables are in no Adam group);
+  3. Adam on the dense parameters (the tables are in no Adam group), at the
+     schedule's LR for this step when `lr_schedule` is given;
   4. the tables' row-wise Adagrad, in place under no_grad: per table
      `split_table_update` with its strategy ("dense": scatter_add_rows +
      rowwise_adagrad_update; "sparse_set": sparse_adagrad_apply; "sparse":
-     plain torch), or on the dense path (table_update "dense")
-     rowwise_adagrad_update on the table gradient that take_rows' backward
-     built with scatter_add_rows.
+     plain torch); otherwise from the dense table gradient that take_rows'
+     backward built with scatter_add_rows: on the touched rows only
+     (`sparse_rowwise_adagrad_update`: table_update "sparse", or "auto" on a
+     model without row_injection where the legacy planner finds it cheaper)
+     or over the whole table (rowwise_adagrad_update).
 
 Each split table's strategy comes from this card's cost model
 (`split_strategy="auto"`, the default; `plan_strategy`), as the JAX trainer
-picks it from its TPU constants, or is given. Metrics stay on the device;
-`fit` reads them back once an epoch (and every `log_every` steps).
+picks it from its TPU constants, or is given; so does the legacy planner's
+choice between the touched-row and the whole-table update
+(`plan_table_update`). A user-chosen optimizer (`Trainer(optimizer=
+make_optimizer(...))` or `make_partitioned_optimizer(...)`) takes no split
+and no touched-row path, as in the JAX trainer: it updates every parameter,
+the tables from their dense gradients. Metrics stay on the device; `fit`
+reads them back once an epoch (and every `log_every` steps).
 
 Every host batch's sparse ids are checked against their tables on the host
 (`data.schema.check_batch_ids`, IndexError), in the prefetch thread for
@@ -37,8 +45,8 @@ import functools
 import re
 import time
 from dataclasses import dataclass
-from typing import (Any, Dict, Iterable, Iterator, List, Mapping, Optional,
-                    Tuple, Union)
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping,
+                    Optional, Tuple, Union)
 
 import numpy as np
 import torch
@@ -50,13 +58,16 @@ from recommendflow_tpu_torch.encoder.pretrained import apply_pretrained
 from recommendflow_tpu_torch.ops.cuda.embedding_bag import gather_rows
 from recommendflow_tpu_torch.ops.cuda.table_update import rowwise_adagrad_update
 from recommendflow_tpu_torch.ops.embedding import (fused_group_ids,
-                                                   physical_ids, rows_key)
+                                                   physical_ids, rows_key,
+                                                   touched_stored_rows)
 from recommendflow_tpu_torch.train.callbacks import Callback, History
 from recommendflow_tpu_torch.train.checkpoint import load_state
-from recommendflow_tpu_torch.train.optimizers import (STRATEGIES,
-                                                      default_table_lr,
-                                                      init_accumulator,
-                                                      split_table_update)
+from recommendflow_tpu_torch.train.optimizers import (
+    STRATEGIES, OptimizerSpec, default_table_lr, init_accumulator,
+    make_lr_schedule, sparse_rowwise_adagrad_update, split_table_update)
+# make_optimizer lives in the JAX package's trainer module: importable here
+from recommendflow_tpu_torch.train.optimizers import (  # noqa: F401
+    make_optimizer, make_partitioned_optimizer)
 from recommendflow_tpu_torch.utils.logger import get_logger
 from recommendflow_tpu_torch.utils.tables import print_table
 
@@ -76,6 +87,22 @@ _TABLE = re.compile(r"table_dim(\d+)$")
 DENSE_S_PER_BYTE = 9.6e-13
 SPARSE_S_PER_ID = 4.4e-9
 SPARSE_FIXED_S = 1.3e-4
+# The legacy planner's cost model (table_update "sparse", or "auto" on a
+# model without row_injection): one table's update from its dense gradient.
+# "dense" (rowwise_adagrad_update over the table) takes
+# LEGACY_DENSE_S_PER_BYTE per byte of the table; "sparse" (the batch's
+# touched rows sorted by touched_stored_rows, then
+# sparse_rowwise_adagrad_update) takes LEGACY_SPARSE_S_PER_ID per id of the
+# batch (duplicates counted) plus LEGACY_SPARSE_FIXED_S. Fitted on an NVIDIA
+# H100 80GB HBM3 at 700.00 W to CUDA-event times of both updates from a
+# batch's dense gradient (chip_smoke.py's train_options phase; PERF.md §6):
+# "dense" 0.301 ms over the 770 MB bench_recall table and 0.941 ms over the
+# 2.5 GB bench_ranking table; "sparse" 0.293, 0.414 and 0.308 ms at 87,040,
+# 106,496 and 53,248 ids. At bench_recall the two are 3% apart and the
+# model takes "dense"; at bench_ranking "sparse".
+LEGACY_DENSE_S_PER_BYTE = 3.8e-13
+LEGACY_SPARSE_S_PER_ID = 1.7e-9
+LEGACY_SPARSE_FIXED_S = 2.0e-4
 
 
 def to_device(batch: Mapping[str, np.ndarray], device: torch.device
@@ -145,13 +172,44 @@ def plan_strategy(table_bytes: int, n_ids: int) -> str:
     return "sparse_set" if sparse < dense else "dense"
 
 
+def table_update_costs(table_bytes: int, n_ids: int) -> Tuple[float, float]:
+    """(dense, sparse) seconds of one update of a table of `table_bytes`
+    from its dense gradient, with a batch of `n_ids` ids, by the legacy
+    planner's cost model."""
+    return (LEGACY_DENSE_S_PER_BYTE * table_bytes,
+            LEGACY_SPARSE_S_PER_ID * n_ids + LEGACY_SPARSE_FIXED_S)
+
+
+def plan_table_update(table_bytes: int, n_ids: int) -> str:
+    """The update that `table_update_costs` finds cheaper ("sparse" where
+    the whole-table pass costs more, as the JAX planner decides)."""
+    dense, sparse = table_update_costs(table_bytes, n_ids)
+    return "sparse" if dense > sparse else "dense"
+
+
+def set_learning_rate(state: "TrainState", lr: float) -> None:
+    """Rewrite the dense optimizer's injected LR (no effect on the next
+    update while a schedule is active: it re-derives the LR every step)."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+
+
+def current_learning_rate(state: "TrainState") -> float:
+    """The dense optimizer's injected LR: the last update's (the schedule's
+    value at count 0 before any)."""
+    return float(state.optimizer.param_groups[0]["lr"])
+
+
 @dataclass
 class TrainState:
     """What a step reads and updates: the model (weights, BatchNorm
-    statistics), Adam over the dense parameters, one [R, 1] f32 row-wise
-    Adagrad accumulator per updated table ('dim{d}') and the step count."""
+    statistics, logQ frequency buffers), the optimizer (Adam over the dense
+    parameters, or a user-chosen `OptaxOptimizer`), one [R, 1] f32 row-wise
+    Adagrad accumulator per table the trainer updates itself ('dim{d}': the
+    split, touched-row and whole-table paths; none under a user-chosen
+    optimizer) and the step count."""
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Any
     table_acc: Dict[str, torch.Tensor]
     step: int = 0
 
@@ -165,26 +223,40 @@ def table_params(model: torch.nn.Module) -> Dict[int, torch.nn.Parameter]:
 class Trainer:
     """Trainer of one model on one device.
 
-    table_update: "auto" (split when the model has row_injection, else
-    dense), "split" or "dense"; "sparse" (the JAX package's touched-row
-    update from a dense table gradient) is not ported. split_strategy:
+    optimizer: None (Adam on the dense parameters, row-wise Adagrad on the
+    tables by the paths below) or an `OptimizerSpec` from `make_optimizer` /
+    `make_partitioned_optimizer`, which then updates every parameter (no
+    split, no touched-row path; `lr_schedule` is ignored: give the spec a
+    schedule as its learning rate). lr_schedule: None, a dict of
+    `make_lr_schedule`'s arguments ({"type": "cosine", "warmup_steps": ...,
+    "decay_steps": ..., "min_ratio": ...}, peak learning_rate) or a
+    function of the update count; while one is active, set_learning_rate
+    and ReduceLROnPlateau's lr_scale have no effect, and the tables keep
+    default_table_lr(learning_rate).
+    table_update: "auto" (split when the model has row_injection, else the
+    legacy planner), "split", "sparse" (the touched rows of the dense table
+    gradient, every table) or "dense" (whole-table updates). split_strategy:
     "auto" (each split table's by `plan_strategy`, from the sample batch's
     ids) or one of "dense", "sparse_set", "sparse" for every split table.
     device defaults to "cuda" and raises without a card unless "cpu" is
     asked for; the model must live there."""
 
-    def __init__(self, model: torch.nn.Module, learning_rate: float = 1e-3,
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: Optional[OptimizerSpec] = None,
+                 learning_rate: float = 1e-3,
+                 lr_schedule: Union[None, Dict[str, Any],
+                                    Callable[[int], float]] = None,
                  table_learning_rate: Optional[float] = None,
                  table_update: str = "auto",
                  split_strategy: str = "auto",
                  device: Union[str, torch.device] = "cuda", seed: int = 0):
-        if table_update == "sparse":
-            raise NotImplementedError(
-                "table_update='sparse' is not ported (ROADMAP Queue 1, item "
-                "2); use 'split' or 'dense'")
-        if table_update not in ("auto", "split", "dense"):
-            raise ValueError(f"table_update must be auto|split|dense, got "
-                             f"'{table_update}'")
+        if table_update not in ("auto", "split", "sparse", "dense"):
+            raise ValueError(f"table_update must be auto|split|sparse|dense, "
+                             f"got '{table_update}'")
+        if optimizer is not None and not isinstance(optimizer, OptimizerSpec):
+            raise TypeError(f"optimizer must come from make_optimizer or "
+                            f"make_partitioned_optimizer, got "
+                            f"{type(optimizer).__name__}")
         if split_strategy != "auto" and split_strategy not in STRATEGIES:
             raise ValueError(f"split_strategy {split_strategy!r}: auto or one "
                              f"of {STRATEGIES}")
@@ -192,17 +264,26 @@ class Trainer:
         if any(p.device.type != self.device.type for p in model.parameters()):
             raise ValueError(f"the model's parameters are not on {self.device}")
         self.model = model
+        self.optimizer = optimizer
+        if optimizer is not None and lr_schedule is not None:
+            log.warning("lr_schedule is ignored beside a given optimizer "
+                        "(as in the JAX trainer): give the optimizer a "
+                        "schedule as its learning rate")
+            lr_schedule = None
+        self.lr_schedule = (make_lr_schedule(learning_rate, **lr_schedule)
+                            if isinstance(lr_schedule, dict) else lr_schedule)
         self.base_lr = learning_rate
         self.table_lr = (default_table_lr(learning_rate)
                          if table_learning_rate is None else table_learning_rate)
-        self.split = table_update in ("auto", "split") and \
-            getattr(model, "row_injection", False)
+        self.split = optimizer is None and table_update in ("auto", "split") \
+            and getattr(model, "row_injection", False)
         if table_update == "split" and not self.split:
-            log.warning("table_update='split' needs model.row_injection; "
-                        "the tables take the dense path")
+            log.warning("table_update='split' needs model.row_injection and "
+                        "the default optimizer; the legacy planner decides")
         self.split_strategy = split_strategy
         self.table_update = table_update
         self._split_dims: Dict[int, str] = {}
+        self._sparse_dims: List[int] = []
         self._planned = False
         self.seed = seed
         self.control: Dict[str, Any] = {"stop": False, "lr_scale": 1.0}
@@ -221,8 +302,9 @@ class Trainer:
 
     def plan(self, sample_batch: Mapping[str, Any]) -> List[int]:
         """Decide which tables take the split path (and with which strategy)
-        from the sparse slots a sample batch carries. Returns the dims that
-        need an accumulator."""
+        or the touched-row path, from the sparse slots a sample batch
+        carries. Returns the dims that need an accumulator (none under a
+        user-chosen optimizer)."""
         schema = self.model.schema
         tables = table_params(self.model)
         n_ids: Dict[int, int] = {}
@@ -232,10 +314,14 @@ class Trainer:
                 n_ids[slot.dim] = n_ids.get(slot.dim, 0) + \
                     int(np.prod(sample_batch[name].shape))
         self._planned = True
-        if not self.split:
-            self._split_dims = {}
-            return sorted(tables)
         self._split_dims = {}
+        self._sparse_dims = []
+        if self.optimizer is not None:
+            return []
+        if not self.split:
+            if self.table_update != "dense":
+                self._plan_sparse(tables, n_ids)
+            return sorted(tables)
         for d in sorted(tables):
             if d not in n_ids:
                 continue
@@ -250,6 +336,25 @@ class Trainer:
                          sparse * 1e3)
             self._split_dims[d] = strategy
         return list(self._split_dims)
+
+    def _plan_sparse(self, tables: Dict[int, torch.nn.Parameter],
+                     n_ids: Dict[int, int]) -> None:
+        """The legacy planner (JAX `_plan_table_updates`): each table the
+        batch touches takes the touched-row update where table_update is
+        "sparse", or where `plan_table_update` finds it cheaper."""
+        for d in sorted(tables):
+            if d not in n_ids:
+                continue
+            nbytes = tables[d].numel() * tables[d].element_size()
+            choice = plan_table_update(nbytes, n_ids[d])
+            dense, sparse = table_update_costs(nbytes, n_ids[d])
+            log.info("legacy planner: dim%d (%.1f MB, %d ids) -> %s (cost "
+                     "model: dense %.3f ms, sparse %.3f ms)%s", d,
+                     nbytes / 1e6, n_ids[d], choice, dense * 1e3, sparse * 1e3,
+                     "; table_update='sparse' takes sparse"
+                     if self.table_update == "sparse" else "")
+            if self.table_update == "sparse" or choice == "sparse":
+                self._sparse_dims.append(d)
 
     def init_state(self, sample_batch: Mapping[str, Any]) -> TrainState:
         """Graft the pretrained encoders that `Networks.pretrained` names
@@ -268,9 +373,18 @@ class Trainer:
         tables = table_params(self.model)
         table_acc = {f"dim{d}": init_accumulator(tables[d])
                      for d in self.plan(sample_batch)}
-        dense = [p for name, p in self.model.named_parameters()
-                 if not _TABLE.search(name)]
-        optimizer = torch.optim.Adam(dense, lr=self.base_lr)
+        if self.optimizer is not None:
+            optimizer = self.optimizer.build(list(
+                self.model.named_parameters()))
+        else:
+            dense = [p for name, p in self.model.named_parameters()
+                     if not _TABLE.search(name)]
+            optimizer = torch.optim.Adam(dense, lr=self.base_lr)
+            if self.lr_schedule is not None:
+                optimizer.param_groups[0]["lr"] = float(self.lr_schedule(0))
+        if self._sparse_dims:
+            log.info("touched-row table updates for %s (from the dense table "
+                     "gradient)", [f"dim{d}" for d in self._sparse_dims])
         if self._split_dims:
             self._validate_row_injection(self._put(sample_batch))
             log.info("split table updates: %s (rows gathered outside "
@@ -344,8 +458,14 @@ class Trainer:
 
     def _apply_table_updates(self, state: TrainState,
                              phys: Dict[int, torch.Tensor],
-                             rows: Dict[int, torch.Tensor]) -> None:
-        """The tables' row-wise Adagrad, in place."""
+                             rows: Dict[int, torch.Tensor],
+                             batch: Optional[Dict[str, torch.Tensor]] = None
+                             ) -> None:
+        """The tables' row-wise Adagrad, in place (a user-chosen optimizer
+        has updated them already). The touched-row path reads the batch's
+        ids."""
+        if self.optimizer is not None:
+            return
         tables = table_params(self.model)
         with torch.no_grad():
             if self._split_dims:
@@ -356,11 +476,22 @@ class Trainer:
                             phys[d], rows[d].grad, lr=self.table_lr,
                             strategy=strategy)
                 return
+            touched = touched_stored_rows(
+                self.model.schema, {f"dim{d}": tables[d]
+                                    for d in self._sparse_dims}, batch) \
+                if self._sparse_dims else {}
             for d, t in tables.items():
-                if t.grad is not None:
-                    rowwise_adagrad_update(t.detach(), state.table_acc[f"dim{d}"],
-                                           t.grad, lr=self.table_lr)
-                    t.grad = None
+                if t.grad is None:
+                    continue
+                acc = state.table_acc[f"dim{d}"]
+                if f"dim{d}" in touched:
+                    sparse_rowwise_adagrad_update(
+                        t.detach(), acc, t.grad, touched[f"dim{d}"],
+                        lr=self.table_lr)
+                else:
+                    rowwise_adagrad_update(t.detach(), acc, t.grad,
+                                           lr=self.table_lr)
+                t.grad = None
 
     def train_step(self, state: TrainState, batch: Mapping[str, Any]):
         """One step, in place on `state`. Returns (state, metrics) with the
@@ -370,16 +501,18 @@ class Trainer:
     def _step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """train_step on a batch that is on the device already."""
         loss, aux, phys, rows = self._forward_backward(batch)
+        if self.lr_schedule is not None:
+            set_learning_rate(state, float(self.lr_schedule(state.step)))
         state.optimizer.step()
-        self._apply_table_updates(state, phys, rows)
+        self._apply_table_updates(state, phys, rows, batch)
         state.step += 1
         return state, {"loss": loss.detach(),
                        **{k: v.detach() for k, v in aux.items()}}
 
     def set_learning_rate(self, state: TrainState, lr: float) -> None:
-        """The dense LR (the tables keep their fixed Adagrad LR)."""
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        """The dense LR (the tables keep their fixed Adagrad LR); no effect
+        while a schedule is active."""
+        set_learning_rate(state, lr)
 
     # --------------------------------------------------------------- loops
     def predict(self, state: TrainState, dataset: Iterable) -> Dict[str, np.ndarray]:

@@ -62,21 +62,22 @@ def _nested(tree):
 def jax_state_tree(state):
     """A JAX TrainState of the default partitioned optimizer as the port's
     training-state tree (recommendflow_tpu_torch/interop.py): params,
-    batch_stats, the tables' row-wise Adagrad accumulators (the split path's
-    table_acc, or the optax accumulators of the dense path), the dense
-    leaves' Adam moments and count, and the step."""
+    batch_stats, the logQ 'freq' collection where the model has it, the
+    tables' row-wise Adagrad accumulators (the split or sparse path's
+    table_acc, and the optax accumulators of the tables on the dense path),
+    the dense leaves' Adam moments and count, and the step."""
     import optax
     from recommendflow_tpu.train.optimizers import RowwiseAdagradState
     (adam,) = _states(state.opt_state, optax.ScaleByAdamState)
-    if state.table_acc:
-        accs = {k: np.asarray(v) for k, v in state.table_acc.items()}
-    else:
-        (ada,) = _states(state.opt_state, RowwiseAdagradState)
+    accs = {k: np.asarray(v) for k, v in (state.table_acc or {}).items()}
+    for ada in _states(state.opt_state, RowwiseAdagradState):
         flat = {p[-1]: v for p, v in _flat(_nested(ada.accumulator)).items()}
-        accs = {k.replace("table_", ""): v for k, v in flat.items()
-                if k.startswith("table_dim")}
+        accs.update({k.replace("table_", ""): v for k, v in flat.items()
+                     if k.startswith("table_dim")})
+    extra = {k: _nested(v) for k, v in (state.extra_vars or {}).items()
+             if k == "freq"}
     return {"params": _nested(state.params),
-            "batch_stats": _nested(state.batch_stats),
+            "batch_stats": _nested(state.batch_stats), **extra,
             "table_acc": accs,
             "opt": {"mu": _nested(adam.mu), "nu": _nested(adam.nu),
                     "count": int(adam.count)},

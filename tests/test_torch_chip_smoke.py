@@ -2,7 +2,8 @@
 prints no result, alone in a directory as well, and its CPU rehearsal drives
 every phase at toy sizes through the plain versions (the serving slice, the
 training run of the three table-update modes, the ranking runs of Dcn and
-the other ranking models, TabTransformer's attention-ranking run with its
+the other ranking models, the training options (the touched-row update, the
+optimizer family, a schedule, logQ, the bf16 MLP), TabTransformer's attention-ranking run with its
 gradient check, SiameseEncoder's text_recall run with its graft and
 gradient checks, the other matching models, the export and /predict
 serving of Dcn, TabTransformer and Dssm, the quantized and approximate
@@ -22,7 +23,8 @@ SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
 # every phase but the build and the timings, which need the card
 REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
-             "flash_attention", "slice", "train", "ranking", "ranking_zoo",
+             "flash_attention", "slice", "train", "ranking", "train_options",
+             "ranking_zoo",
              "attention_ranking", "text_recall", "matching_zoo",
              "export_serve", "sq_search", "ann", "encode", "serve",
              "text_search", "cli")
@@ -118,6 +120,21 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
         f"{s}/zipf{z}/dim16" for s in ("dense", "sparse_set")
         for z in (0.0, 1.2)]
     assert all(c["p_ulps"] == 0 for c in rank["update_check"].values())
+    opts = phases["train_options"]
+    assert sorted(opts["ranking"]["runs"]) == ["dense", "sparse"]
+    assert opts["ranking"]["host_waits_sparse_step"] == 0
+    check = opts["ranking"]["update_check"]
+    assert check["p_ulps"] == 0 and check["untouched_bitwise"]
+    assert check["acc_rel_err"] <= 1e-6 and check["touched_rows"] > 0
+    assert sorted(opts["optimizers"]) == ["adagrad", "adam", "adamw", "lamb",
+                                          "partitioned_adamw", "sgd"]
+    assert opts["planner"] == {}                       # timed on the card only
+    lrs = opts["schedule"]["lrs"]
+    assert lrs[0] == lrs[1] == 0.0 and max(lrs) == pytest.approx(1e-3)
+    assert opts["logq"]["stream_steps"] == [1, 2, 3]
+    assert opts["logq"]["buckets_seen"] == sorted(opts["logq"]["buckets_seen"])
+    bf16 = opts["bf16"]
+    assert 0 < max(bf16["row_l2_vs_f32"].values()) <= bf16["tolerance"]
     zoo = phases["ranking_zoo"]["models"]
     assert sorted(zoo) == ["Cold", "DeepFm", "Din", "Escm2-dr", "Escm2-ips",
                            "Esim", "Essm", "Mmoe", "TabTransformer", "XDeepFm"]

@@ -1231,3 +1231,141 @@ def test_export_on_the_card_equals_eager_and_launches_the_kernels(
         np.testing.assert_array_equal(v, want[k].cpu().numpy(), err_msg=k)
     cpu = ServingModel.load(path, device="cpu").predict(serve)
     np.testing.assert_allclose(cpu["logit"], got["logit"], rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------------ training options
+@pytest.mark.parametrize("table_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("zipf", [0.0, 1.2])
+def test_dcn_sparse_step_matches_the_plain_update(cuda, table_dtype, zipf):
+    """A Dcn step under table_update="sparse" (demo_ranking): its touched-row
+    update (gather_rows of the dense gradient's rows, sparse_adagrad_apply)
+    against sparse_rowwise_adagrad_update_plain (the JAX form) on the same
+    dense gradient: p bitwise, acc within rtol 1e-6, untouched rows bitwise;
+    the step launches gather_rows, scatter_add_rows (the backward) and
+    sparse_adagrad_apply once each for the table, never
+    rowwise_adagrad_update."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as kr
+    from recommendflow_tpu_torch.ops.cuda import sparse_apply as ks
+    from recommendflow_tpu_torch.ops.cuda import table_update as kt
+    from recommendflow_tpu_torch.ops.embedding import touched_stored_rows
+    from recommendflow_tpu_torch.train.optimizers import (
+        sparse_rowwise_adagrad_update_plain)
+    from recommendflow_tpu_torch.train.trainer import Trainer, table_params
+    conf = Configuration(f"{tp.ROOT}/conf/demo_ranking.yaml")
+    conf.networks["table_dtype"] = table_dtype
+    model, _ = build_network("dcn", {"conf": conf, "dropout": 0.0,
+                                     "device": cuda, "seed": 5})
+    batch = synthetic_batch(model.schema, 256, seed=9, zipf=zipf)
+    t = Trainer(model, table_update="sparse", device=cuda)
+    state = t.init_state(batch)
+    (d,) = t._sparse_dims
+    table = table_params(model)[d]
+    p, acc = table.detach(), state.table_acc[f"dim{d}"]
+    kernels = (kr.gather_rows, kr.scatter_add_rows, ks.sparse_adagrad_apply,
+               kt.rowwise_adagrad_update)
+    counts = [f.launches for f in kernels]
+    db = t._put(batch)
+    _, _, phys, rows = t._forward_backward(db)
+    state.optimizer.step()
+    g = table.grad.clone()
+    sids = touched_stored_rows(model.schema, {f"dim{d}": p}, db)[f"dim{d}"]
+    p0, acc0 = p.clone(), acc.clone()
+    t._apply_table_updates(state, phys, rows, db)
+    torch.cuda.synchronize()
+    launched = [f.launches - c for f, c in zip(kernels, counts)]
+    assert table.grad is None
+    assert launched == [2, 1, 1, 0]        # forward gather, g's rows
+    p_k, acc_k = p.clone(), acc.clone()
+    p.copy_(p0), acc.copy_(acc0)
+    sparse_rowwise_adagrad_update_plain(p, acc, g, sids, lr=t.table_lr)
+    touched = torch.zeros(p.shape[0], dtype=torch.bool, device=cuda)
+    touched[sids.long()] = True
+    assert _ulps(p_k, p) == 0
+    torch.testing.assert_close(acc_k, acc, rtol=1e-6, atol=0)
+    bits = torch.int16 if p.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(p_k[~touched].view(bits), p0[~touched].view(bits))
+    assert torch.equal(acc_k[~touched], acc0[~touched])
+
+
+@pytest.mark.parametrize("case", ["sparse", "adam_clip", "logq"])
+def test_training_option_steps_make_no_host_wait(cuda, case):
+    """A step on a batch already on the card, under CUDA's sync debug mode
+    ("error"): the touched-row update, make_optimizer's adam with its
+    clip_norm (the global norm stays on the card) and the logQ stream's
+    update never make the host wait."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.train.trainer import Trainer, make_optimizer
+    conf = Configuration(f"{tp.ROOT}/conf/demo_recall.yaml")
+    kw = {}
+    if case == "sparse":
+        kw = {"table_update": "sparse"}
+    elif case == "adam_clip":
+        kw = {"optimizer": make_optimizer(1e-3, "adam", clip_norm=1.0)}
+    else:
+        conf.networks["logq_feature"] = "item_id"
+    model, _ = build_network("dssm", {"conf": conf, "device": cuda,
+                                      "seed": 0})
+    batches = [synthetic_batch(model.schema, 128, seed=s) for s in (1, 2)]
+    t = Trainer(model, device=cuda, **kw)
+    state = t.init_state(batches[0])
+    state, _ = t.train_step(state, batches[0])     # warm: caches, lazy state
+    db = t._put(batches[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = t._step(state, db)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(m["loss"])) and state.step == 2
+
+
+@pytest.mark.parametrize("case", ["sparse", "dense", "adam", "lamb",
+                                  "partitioned_adamw"])
+def test_training_options_launch_their_kernels(cuda, case):
+    """Dssm (demo_recall) steps launch the table kernels of their path:
+    gather_rows and scatter_add_rows always (the embed pass and its
+    backward), sparse_adagrad_apply on the touched-row path,
+    rowwise_adagrad_update on the whole-table path and under
+    make_partitioned_optimizer, neither under make_optimizer (elementwise
+    over the dense table gradient); the losses finite."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as kr
+    from recommendflow_tpu_torch.ops.cuda import sparse_apply as ks
+    from recommendflow_tpu_torch.ops.cuda import table_update as kt
+    from recommendflow_tpu_torch.train.trainer import (
+        Trainer, make_optimizer, make_partitioned_optimizer)
+    conf = Configuration(f"{tp.ROOT}/conf/demo_recall.yaml")
+    model, _ = build_network("dssm", {"conf": conf, "device": cuda,
+                                      "seed": 0})
+    kw = {"sparse": {"table_update": "sparse"},
+          "dense": {"table_update": "dense"},
+          "adam": {"optimizer": make_optimizer(1e-3, "adam")},
+          "lamb": {"optimizer": make_optimizer(1e-3, "lamb",
+                                               weight_decay=1e-4)},
+          "partitioned_adamw": {"optimizer": make_partitioned_optimizer(
+              1e-3, dense_optimizer="adamw", weight_decay=1e-4)}}[case]
+    batches = [synthetic_batch(model.schema, 128, seed=s) for s in (1, 2)]
+    t = Trainer(model, device=cuda, **kw)
+    state = t.init_state(batches[0])
+    kernels = (kr.gather_rows, kr.scatter_add_rows, ks.sparse_adagrad_apply,
+               kt.rowwise_adagrad_update)
+    counts = [f.launches for f in kernels]
+    for b in batches:
+        state, m = t.train_step(state, b)
+        assert np.isfinite(float(m["loss"]))
+    n_tables = len(model.schema.groups)
+    got = [f.launches - c for f, c in zip(kernels, counts)]
+    want = {"sparse": [4 * n_tables, 2 * n_tables, 2 * n_tables, 0],
+            "dense": [2 * n_tables, 2 * n_tables, 0, 2 * n_tables],
+            "adam": [2 * n_tables, 2 * n_tables, 0, 0],
+            "lamb": [2 * n_tables, 2 * n_tables, 0, 0],
+            "partitioned_adamw": [2 * n_tables, 2 * n_tables, 0,
+                                  2 * n_tables]}[case]
+    assert got == want, (case, got)

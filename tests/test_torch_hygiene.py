@@ -69,7 +69,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "models/matching/dssm_encoder.py",
                    "models/matching/que2search.py", "models/matching/pdm.py",
                    "models/matching/mobius.py", "export/exporter.py",
-                   "cli/export.py"):
+                   "cli/export.py", "train/freq.py"):
         assert os.path.join("recommendflow_tpu_torch", module) in rel, module
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
@@ -184,6 +184,28 @@ def test_table_kernels_never_take_the_plain_version_off_the_cpu(monkeypatch,
     wrapper(*a, **kw)
     assert wrapper.launches == before
     assert float(a[2 if kernel == "scatter_add_rows" else 0].abs().sum()) > 0
+
+
+def test_touched_row_update_never_takes_the_plain_version_off_the_cpu(
+        monkeypatch):
+    """train/optimizers.py:sparse_rowwise_adagrad_update on meta tensors
+    (this machine has no CUDA) goes down gather_rows' launch path, which
+    refuses them; neither kernel's plain version is called."""
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag, sparse_apply
+    from recommendflow_tpu_torch.train.optimizers import (
+        sparse_rowwise_adagrad_update)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with a non-CPU tensor")
+
+    monkeypatch.setattr(embedding_bag, "gather_rows_plain", boom)
+    monkeypatch.setattr(sparse_apply, "sparse_adagrad_apply_plain", boom)
+    p = torch.zeros((8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sparse_rowwise_adagrad_update(
+            p, torch.ones((8, 1), device="meta"), torch.ones_like(p),
+            torch.tensor([1, 1, 5], dtype=torch.int32, device="meta"),
+            lr=0.1)
 
 
 @pytest.mark.parametrize("kernel", ["gather_rows", "grouped_score_max"])

@@ -159,7 +159,9 @@ def test_predict_bad_bodies_are_400(dcn_export):
     """The client's mistakes answer 400, as in the JAX package's
     tests/test_serving.py: 'batch' not a dict, too many rows, a wrong shape,
     a missing input, an id outside its table (checked on the host); the
-    next request is answered."""
+    next request is answered. The missing input is posted where max_batch
+    admits the batch, so it reaches ServingModel.predict's KeyError (the
+    JAX server answers that KeyError 404, a LookupError's answer)."""
     from recommendflow_tpu_torch.serving import ServingModel
     path, batch = dcn_export
     sm = ServingModel.load(path, device="cpu")
@@ -168,20 +170,42 @@ def test_predict_bad_bodies_are_400(dcn_export):
     try:
         bad_id = dict(body, user_id=(batch["user_id"] + 10 ** 6).tolist())
         cases = {"not a dict": {"batch": [1, 2]},
-                 "too many rows": {"batch": body},
-                 "missing input": {"batch": {"user_id": body["user_id"]}}}
+                 "too many rows": {"batch": body}}
         for what, payload in cases.items():
             code, _ = _post_json(url, "/predict", json.dumps(payload).encode())
             assert code == 400, what
         backend.max_batch = 16
         short = dict(body, user_id=body["user_id"][:2])
-        for what, payload in (("shape", short), ("'user_id'", bad_id)):
+        missing = {"user_id": body["user_id"]}
+        for what, payload in (("missing", missing), ("shape", short),
+                              ("'user_id'", bad_id)):
             code, err = _post_json(url, "/predict",
                                    json.dumps({"batch": payload}).encode())
             assert code == 400 and what in err
         out = _post(url, "/predict", {"batch": body})
         np.testing.assert_array_equal(np.asarray(out["score"], np.float32),
                                       sm.predict(batch)["score"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        backend.close()
+
+
+def test_unknown_endpoint_is_404_and_missing_input_400(dcn_export):
+    """A path the server does not serve answers 404, by GET and by POST,
+    beside a model; a body that lacks an exported input answers 400."""
+    from recommendflow_tpu_torch.serving import ServingModel
+    path, batch = dcn_export
+    sm = ServingModel.load(path, device="cpu")
+    backend, httpd, url = _serve(None, serving_model=sm, max_batch=16)
+    try:
+        code, err = _post_json(url, "/nope", b"{}")
+        assert code == 404 and "unknown endpoint" in err
+        assert _code(lambda: urllib.request.urlopen(url + "/nope",
+                                                    timeout=30)) == 404
+        code, err = _post_json(url, "/predict", json.dumps(
+            {"batch": {"user_id": batch["user_id"].tolist()}}).encode())
+        assert code == 400 and "missing" in err
     finally:
         httpd.shutdown()
         httpd.server_close()

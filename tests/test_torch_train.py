@@ -243,11 +243,18 @@ def test_row_injection_guard():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """An unknown split strategy is refused; table_update="sparse", which
+    this test refused before it was ported, takes the touched-row path on
+    every table and trains (tests/test_torch_sparse_update.py holds it
+    against the JAX trainer)."""
     from recommendflow_tpu_torch.models.matching.dssm import Dssm
     from recommendflow_tpu_torch.train.trainer import Trainer
-    _, tc, _ = _world("float32")
+    _, tc, batches = _world("float32")
     model = Dssm(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, table_update="sparse", device="cpu")
+    t = Trainer(model, table_update="sparse", device="cpu")
+    state = t.init_state(batches[0])
+    assert t._sparse_dims == sorted(model.schema.groups) and not t._split_dims
+    state, m = t.train_step(state, batches[1])
+    assert np.isfinite(float(m["loss"])) and state.step == 1
     with pytest.raises(ValueError):
         Trainer(model, split_strategy="scatter", device="cpu")

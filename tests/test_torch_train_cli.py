@@ -1,8 +1,8 @@
 """The port's training CLI on the CPU: cli/train --train_mode test on
 demo_recall records saves a checkpoint; cli/predict and cli/evaluate on that
 checkpoint give the trained model's outputs (atol 1e-6: the same model on
-the same records) and finite metrics. Flags that need a later slice
-raise."""
+the same records) and finite metrics; --lr_schedule trains. Flags that
+need a later slice raise."""
 import os
 
 import numpy as np
@@ -58,12 +58,30 @@ def test_predict_and_evaluate_on_the_trained_checkpoint(trained):
     assert metrics and all(np.isfinite(v) for v in metrics.values())
 
 
-@pytest.mark.parametrize("flag", [["--shard_tables"], ["--preempt_dir", "x"],
-                                  ["--lr_schedule", "cosine"]])
+@pytest.mark.parametrize("flag", [["--shard_tables"], ["--preempt_dir", "x"]])
 def test_flags_of_later_slices_raise(flag):
     from recommendflow_tpu_torch.cli import train as cli
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main([tp.DEMO_CONF, "--device", "cpu", *flag])
+
+
+def test_train_cli_with_an_lr_schedule(trained, capsys):
+    """--lr_schedule cosine --warmup_steps 2 --decay_steps 10 trains on the
+    CPU: the dense LR after the last step is the schedule's value at that
+    step's count (make_lr_schedule), and ReduceLROnPlateau is left out."""
+    from recommendflow_tpu_torch.cli import train as cli
+    from recommendflow_tpu_torch.train.optimizers import make_lr_schedule
+    from recommendflow_tpu_torch.train.trainer import current_learning_rate
+    _, data, _, _ = trained
+    result = cli.main([tp.DEMO_CONF, "--data", data, "--train_mode", "test",
+                       "--batch_size", "64", "--device", "cpu", "--epochs",
+                       "1", "--lr", "0.002", "--lr_schedule", "cosine",
+                       "--warmup_steps", "2", "--decay_steps", "10"])
+    assert "ReduceLROnPlateau disabled" in capsys.readouterr().out
+    state = result["state"]
+    assert state.step == 9 and np.isfinite(result["history"][-1]["loss"])
+    want = make_lr_schedule(0.002, "cosine", warmup_steps=2, decay_steps=10)
+    assert current_learning_rate(state) == want(state.step - 1)
 
 
 def test_train_cli_defaults_to_the_card(monkeypatch):
