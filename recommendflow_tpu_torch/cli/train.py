@@ -11,9 +11,14 @@ cli/predict and cli/evaluate take as --checkpoint:
 
 --lr_schedule (cosine | linear | warmup_constant, peak --lr) with
 --warmup_steps and --decay_steps re-derives the dense LR every step, so
-ReduceLROnPlateau is left out while it is active. Flags that need a later
-slice of the port raise (--shard_tables, --preempt_dir); --no_mesh is
-accepted and changes nothing (one card, no mesh).
+ReduceLROnPlateau is left out while it is active.
+
+--preempt_dir (default `<model_save_root>/preempt` when a save root is
+known) installs the preemption handler: SIGTERM or SIGINT ends the run
+after the step in flight with `<preempt_dir>/<step>.pt`, which
+--load_checkpoint resumes mid-epoch. --shard_tables needs the parallel
+slice and raises; --no_mesh is accepted and changes nothing (one card, no
+mesh).
 """
 from __future__ import annotations
 
@@ -53,7 +58,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no_mesh", action="store_true",
                    help="accepted; the port trains on one card without a mesh")
     p.add_argument("--preempt_dir", default=None,
-                   help="not ported yet (ROADMAP Queue 1: preemption)")
+                   help="checkpoint dir for graceful SIGTERM/SIGINT "
+                        "preemption (default: <model_save_root>/preempt)")
     p.add_argument("--shard_tables", action="store_true",
                    help="not ported yet (ROADMAP Queue 1: parallel)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -63,11 +69,9 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     print_args(args)
-    for flag, feature in (("shard_tables", "parallel, row-sharded tables"),
-                          ("preempt_dir", "preemption")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP Queue 1: {feature})")
+    if args.shard_tables:
+        raise NotImplementedError("--shard_tables is not ported yet (ROADMAP "
+                                  "Queue 1: parallel, row-sharded tables)")
 
     from recommendflow_tpu_torch.config import Configuration
     from recommendflow_tpu_torch.data.pipeline import make_dataset
@@ -80,7 +84,8 @@ def main(argv=None):
                                                          ReduceLROnPlateau)
     from recommendflow_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                           save_checkpoint)
-    from recommendflow_tpu_torch.train.trainer import Trainer
+    from recommendflow_tpu_torch.train.trainer import (
+        Trainer, install_preemption_handler)
 
     dev = resolve_device(args.device)
     conf = Configuration(args.conf)
@@ -140,11 +145,20 @@ def main(argv=None):
         state = trainer.init_state(next(iter(train_ds)))
         restore_checkpoint(args.load_checkpoint, state)
 
+    preempt_dir = args.preempt_dir or (
+        os.path.join(save_root, "preempt") if save_root else None)
+    if preempt_dir:
+        install_preemption_handler(trainer)
+
     result = trainer.fit(train_ds, epochs=epochs, valid_ds=valid_ds,
                          callbacks=callbacks, state=state,
                          log_every=5 if debug else 100,
+                         preempt_dir=preempt_dir,
                          resume_data=not args.warm_start)
-    if save_root:
+    if result["preempted"]:
+        print(f"preempted at step {result['state'].step}: resume with "
+              f"--load_checkpoint {preempt_dir}")
+    elif save_root:
         path = save_checkpoint(os.path.join(save_root, "ckpt", "final.pt"),
                                result["state"])
         print(f"saved {path}")

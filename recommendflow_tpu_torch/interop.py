@@ -63,6 +63,10 @@ tables on the dense path, and the dense leaves' Adam moments):
 
 `load_train_state` copies it into a port TrainState (train/trainer.py),
 `train_state_tree` reads one back out.
+
+An Mmoe tree written before the JAX package batched its experts (one
+`expert{i}` subtree per expert) is brought to the stacked layout by
+`models/ranking/mmoe.py:migrate_legacy_params` as it is loaded.
 """
 from __future__ import annotations
 
@@ -199,7 +203,12 @@ def jax_from_variables(state: Mapping[str, torch.Tensor],
 def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]
                        ) -> torch.nn.Module:
     """Copy a flax variable tree into `model` in place (onto its device).
-    Every parameter and buffer must be covered."""
+    Every parameter and buffer must be covered. A model with a
+    `migrate_legacy_params` (Mmoe) first brings an older params layout to
+    its own."""
+    migrate = getattr(model, "migrate_legacy_params", None)
+    if migrate is not None and "params" in variables:
+        variables = {**variables, "params": migrate(variables["params"])}
     state = variables_from_jax(variables)
     own = model.state_dict()
     missing = [k for k in own if k not in state]

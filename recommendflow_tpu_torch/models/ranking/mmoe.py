@@ -5,16 +5,23 @@ Multi-gate mixture of experts: E expert MLPs shared across the tasks, run
 as one batched computation over an [E, ...] parameter axis
 (ops/mlp.py:ExpertsMLP), each task with its own softmax gate, tower and
 head. Task labels come from the config's label features in order.
+
+`migrate_legacy_params` turns a flax params tree written before the experts
+were batched (one `expert{i}` subtree per expert) into the stacked layout;
+`interop.load_jax_variables` applies it to an Mmoe's tree.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import re
+from typing import Any, Mapping, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from recommendflow_tpu_torch.config.configuration import Configuration
 from recommendflow_tpu_torch.device import resolve_device
+from recommendflow_tpu_torch.interop import flatten, unflatten
 from recommendflow_tpu_torch.models.base import (Batch, FeatureEmbedder,
                                                  RecModel, init_dense_)
 from recommendflow_tpu_torch.models.common import (bce_with_logits,
@@ -23,12 +30,33 @@ from recommendflow_tpu_torch.models.common import (bce_with_logits,
 from recommendflow_tpu_torch.ops.mlp import MLP, ExpertsMLP
 
 
+def migrate_legacy_params(params: Mapping[str, Any]):
+    """A pre-ExpertsMLP Mmoe params tree of numpy arrays (the JAX layout: one
+    `expert{i}` MLP subtree per expert) in the stacked layout
+    (`ExpertsMLP_0/experts` with a leading expert axis), as the JAX
+    package's `migrate_legacy_params`. Returns `params` itself when it holds
+    no `expert{i}` subtree or is stacked already."""
+    d = dict(params)
+    keys = sorted((k for k in d if re.fullmatch(r"expert\d+", k)),
+                  key=lambda k: int(k[len("expert"):]))
+    if not keys or "ExpertsMLP_0" in d:
+        return params
+    subtrees = [flatten(d.pop(k)) for k in keys]
+    if any(sorted(t) != sorted(subtrees[0]) for t in subtrees):
+        raise ValueError(f"the expert subtrees {keys} differ in structure")
+    d["ExpertsMLP_0"] = {"experts": unflatten(
+        {path: np.stack([np.asarray(t[path]) for t in subtrees])
+         for path in subtrees[0]})}
+    return d
+
+
 class Mmoe(RecModel):
     """Built as Dcn is. Training mode: (the sum of the tasks' BCE losses,
     {'task{t}_loss'}); eval mode: {'score{t}', 'label{t}'} per task, with
     'score' and 'label' the first task's."""
 
     row_injection = True  # single full-batch embed pass (models/base.py)
+    migrate_legacy_params = staticmethod(migrate_legacy_params)
 
     def __init__(self, conf: Configuration, loss=None, num_experts: int = 4,
                  num_tasks: int = 2, expert_units: Sequence[int] = (128, 64),

@@ -1,13 +1,82 @@
-"""Exact offline ranking metrics over host numpy arrays (AUC, AUPR,
-recall at a precision floor), sklearn semantics
+"""Metrics (the counterpart of `recommendflow_tpu/train/metrics.py`): the
+streaming AUC, binned TP/FP/TN/FN counts that stay on the device of the
+scores they are given (`AucState`, `auc_init`, `auc_update`, `auc_result`),
+and exact offline metrics over host numpy arrays (AUC, AUPR, recall at a
+precision floor, Spearman), sklearn semantics
 (backend/utils/eval_utils.py:33-82,270-293 of the reference system).
-The streaming on-device accumulators arrive with the trainer.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
+
+from recommendflow_tpu_torch.device import resolve_device
+
+
+class AucState(NamedTuple):
+    """Binned TP/FP/TN/FN accumulators over score thresholds."""
+    tp: torch.Tensor
+    fp: torch.Tensor
+    tn: torch.Tensor
+    fn: torch.Tensor
+
+
+def auc_init(num_thresholds: int = 200, device="cuda") -> AucState:
+    """Zero counts on `device` (default "cuda"; raises without a card unless
+    "cpu" is asked for)."""
+    z = torch.zeros((num_thresholds,), dtype=torch.float32,
+                    device=resolve_device(device))
+    return AucState(z, z, z, z)
+
+
+def _thresholds(n: int, device) -> torch.Tensor:
+    # keras-style: [-eps, n-2 inner points, 1+eps] -> n thresholds total
+    eps = 1e-7
+    if n <= 2:
+        return torch.tensor([-eps, 1.0 + eps], dtype=torch.float32,
+                            device=device)
+    inner = torch.linspace(0.0, 1.0, n, dtype=torch.float32,
+                           device=device)[1:-1]
+    edge = torch.tensor([-eps, 1.0 + eps], dtype=torch.float32, device=device)
+    return torch.cat([edge[:1], inner, edge[1:]])
+
+
+def auc_update(state: AucState, y_true: torch.Tensor, y_score: torch.Tensor,
+               axis_name: Optional[str] = None) -> AucState:
+    """Accumulate one batch (on the state's device, no host read); y_score
+    in [0, 1] (sigmoid, or cosine rescaled). A cross-device sum
+    (`axis_name`) comes with the parallel slice."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "auc_update(axis_name=...) sums the counts across cards: it "
+            "arrives with the parallel slice (ROADMAP Queue 1: parallel)")
+    # [B, 1] model outputs must not broadcast against [T, 1] thresholds
+    y_true = torch.as_tensor(y_true, device=state.tp.device).reshape(-1)
+    y_score = torch.as_tensor(y_score, device=state.tp.device).reshape(-1)
+    thr = _thresholds(state.tp.shape[0], state.tp.device)[:, None]  # [T, 1]
+    pred_pos = y_score[None, :] > thr                               # [T, B]
+    pos = (y_true > 0.5)[None, :]
+    tp = torch.sum(pred_pos & pos, dim=1, dtype=torch.float32)
+    fp = torch.sum(pred_pos & ~pos, dim=1, dtype=torch.float32)
+    tn = torch.sum(~pred_pos & ~pos, dim=1, dtype=torch.float32)
+    fn = torch.sum(~pred_pos & pos, dim=1, dtype=torch.float32)
+    return AucState(state.tp + tp, state.fp + fp, state.tn + tn,
+                    state.fn + fn)
+
+
+def auc_result(state: AucState) -> torch.Tensor:
+    """ROC-AUC by trapezoidal interpolation over the threshold bins, a
+    device scalar. NaN when the stream held only one class (roc_auc
+    parity)."""
+    tpr = state.tp / torch.clamp(state.tp + state.fn, min=1e-7)
+    fpr = state.fp / torch.clamp(state.fp + state.tn, min=1e-7)
+    # thresholds ascend -> fpr/tpr descend; integrate over fpr
+    auc = torch.sum((fpr[:-1] - fpr[1:]) * (tpr[:-1] + tpr[1:]) / 2.0)
+    # tp+fn == total positives (constant across thresholds); idx 0 = -eps
+    defined = (state.tp[0] + state.fn[0] > 0) & (state.fp[0] + state.tn[0] > 0)
+    return torch.where(defined, auc, torch.full_like(auc, float("nan")))
 
 
 def roc_auc(y_true: np.ndarray, y_score: np.ndarray) -> float:
@@ -91,3 +160,13 @@ def recall_at_precision(y_true: np.ndarray, y_score: np.ndarray,
         return 0.0, float("inf")
     best = np.argmax(np.where(ok, recall, -1.0))
     return float(recall[best]), float(scores[best])
+
+
+def spearman(a: np.ndarray, b: np.ndarray) -> float:
+    """Spearman rank correlation (parity: eval_utils.py:79-82), with average
+    ranks on ties (scipy.stats.spearmanr's semantics)."""
+    ra, rb = _average_ranks(a), _average_ranks(b)
+    ra -= ra.mean()
+    rb -= rb.mean()
+    denom = np.sqrt((ra ** 2).sum() * (rb ** 2).sum())
+    return float((ra * rb).sum() / denom) if denom > 0 else float("nan")

@@ -32,6 +32,24 @@ and no touched-row path, as in the JAX trainer: it updates every parameter,
 the tables from their dense gradients. Metrics stay on the device; `fit`
 reads them back once an epoch (and every `log_every` steps).
 
+Dropout: each step draws from the device's generator reseeded with
+`step_seed(state.seed, state.step)` at the top of the step, the counterpart
+of the JAX trainer's `fold_in(state.rng, state.step)`: a run restored at
+step s draws the masks of an uninterrupted run's step s. The seed travels in
+the checkpoint with the step (train/checkpoint.py), and on a restore the
+checkpoint's seed wins over the Trainer's `seed`, which only seeds a fresh
+state. Reseeding sets the generator's seed and offset on the host; the card
+is not waited for.
+
+Long runs: `fit(preempt_dir=)` with `install_preemption_handler` stops after
+the step in flight on SIGTERM or SIGINT, skips validation and the epoch-end
+callbacks and writes `<preempt_dir>/<step>.pt`, from which a later `fit`
+resumes mid-epoch on a dataset with a length and `iter_from`;
+`fit(profile_dir=, profile_steps=)` traces a window of epoch 0's steps with
+torch.profiler (utils/profiling.py). The JAX trainer's cross-process stop
+agreement (`_PreemptSync`, `preempt_window`) and its cluster-min epoch cap
+are multi-process only and wait for the parallel slice.
+
 Every host batch's sparse ids are checked against their tables on the host
 (`data.schema.check_batch_ids`, IndexError), in the prefetch thread for
 `fit`, `evaluate` and `predict`, before the batch is copied to the card; the
@@ -43,6 +61,7 @@ from __future__ import annotations
 
 import functools
 import re
+import signal
 import time
 from dataclasses import dataclass
 from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping,
@@ -61,7 +80,7 @@ from recommendflow_tpu_torch.ops.embedding import (fused_group_ids,
                                                    physical_ids, rows_key,
                                                    touched_stored_rows)
 from recommendflow_tpu_torch.train.callbacks import Callback, History
-from recommendflow_tpu_torch.train.checkpoint import load_state
+from recommendflow_tpu_torch.train.checkpoint import load_state, save_step
 from recommendflow_tpu_torch.train.optimizers import (
     STRATEGIES, OptimizerSpec, default_table_lr, init_accumulator,
     make_lr_schedule, sparse_rowwise_adagrad_update, split_table_update)
@@ -69,6 +88,7 @@ from recommendflow_tpu_torch.train.optimizers import (
 from recommendflow_tpu_torch.train.optimizers import (  # noqa: F401
     make_optimizer, make_partitioned_optimizer)
 from recommendflow_tpu_torch.utils.logger import get_logger
+from recommendflow_tpu_torch.utils.profiling import start_trace, stop_trace
 from recommendflow_tpu_torch.utils.tables import print_table
 
 log = get_logger("recflow.trainer")
@@ -187,6 +207,28 @@ def plan_table_update(table_bytes: int, n_ids: int) -> str:
     return "sparse" if dense > sparse else "dense"
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The dropout seed of step `step` of a run seeded `seed`: splitmix64's
+    finaliser (a bijection of 64-bit words) of seed and step packed into one
+    word, so distinct (seed, step) pairs below 2^32 get distinct seeds."""
+    z = ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def device_generator(device: torch.device) -> torch.Generator:
+    """The default generator that dropout on `device` draws from."""
+    if device.type == "cuda":
+        index = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        return torch.cuda.default_generators[index]
+    return torch.default_generator
+
+
 def set_learning_rate(state: "TrainState", lr: float) -> None:
     """Rewrite the dense optimizer's injected LR (no effect on the next
     update while a schedule is active: it re-derives the LR every step)."""
@@ -207,11 +249,13 @@ class TrainState:
     parameters, or a user-chosen `OptaxOptimizer`), one [R, 1] f32 row-wise
     Adagrad accumulator per table the trainer updates itself ('dim{d}': the
     split, touched-row and whole-table paths; none under a user-chosen
-    optimizer) and the step count."""
+    optimizer), the step count and the run's seed (each step's dropout
+    draws from `step_seed(seed, step)`)."""
     model: torch.nn.Module
     optimizer: Any
     table_acc: Dict[str, torch.Tensor]
     step: int = 0
+    seed: int = 0
 
 
 def table_params(model: torch.nn.Module) -> Dict[int, torch.nn.Parameter]:
@@ -359,14 +403,13 @@ class Trainer:
     def init_state(self, sample_batch: Mapping[str, Any]) -> TrainState:
         """Graft the pretrained encoders that `Networks.pretrained` names
         (encoder/pretrained.py:apply_pretrained), plan the table updates from
-        a sample batch and build the state. Dropout draws from torch's
-        generator, seeded here with `seed`.
+        a sample batch and build the state, whose dropout seed is the
+        Trainer's `seed`.
 
         The graft belongs to the weights' initialisation, which the port
         does once, when the model is built: a model already grafted (by
         another trainer, or by this one in an earlier call) keeps the
         weights it holds, trained or not."""
-        torch.manual_seed(self.seed)
         if not getattr(self.model, "pretrained_grafted", False):
             apply_pretrained(self.model)
             self.model.pretrained_grafted = True
@@ -393,7 +436,7 @@ class Trainer:
         n = sum(p.numel() for p in self.model.parameters())
         log.info("initialized %s: %.3fM params on %s",
                  type(self.model).__name__, n / 1e6, self.device)
-        return TrainState(self.model, optimizer, table_acc, 0)
+        return TrainState(self.model, optimizer, table_acc, 0, self.seed)
 
     def _validate_row_injection(self, batch: Dict[str, torch.Tensor]) -> None:
         """One tiny forward/backward with the rows injected: every split
@@ -500,6 +543,8 @@ class Trainer:
 
     def _step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """train_step on a batch that is on the device already."""
+        device_generator(self.device).manual_seed(
+            step_seed(state.seed, state.step))
         loss, aux, phys, rows = self._forward_backward(batch)
         if self.lr_schedule is not None:
             set_learning_rate(state, float(self.lr_schedule(state.step)))
@@ -555,12 +600,24 @@ class Trainer:
             valid_ds: Optional[Iterable] = None,
             callbacks: Optional[List[Callback]] = None,
             log_every: int = 100, state: Optional[TrainState] = None,
-            resume_data: bool = True, verbose: bool = True) -> Dict[str, Any]:
-        """Train `epochs` epochs; returns {'state', 'history'}. Each epoch's
+            profile_dir: Optional[str] = None,
+            profile_steps: Tuple[int, int] = (10, 15),
+            resume_data: bool = True, preempt_dir: Optional[str] = None,
+            verbose: bool = True) -> Dict[str, Any]:
+        """Train `epochs` epochs; returns {'state', 'history', 'preempted'}
+        ('preempted': the run ended on control["preempt"]). Each epoch's
         logs hold the mean step metrics, examples_per_sec (the host clock
         around the epoch, read after the card finished it), the validation
         metrics and what the callbacks add. A given `state` with steps done
-        resumes mid-stream when train_ds has a length (resume_data)."""
+        resumes mid-stream when train_ds has a length (resume_data).
+
+        control["preempt"] (install_preemption_handler sets it) ends the
+        epoch after the step in flight; fit then skips validation and the
+        epoch-end callbacks and, with a `preempt_dir`, writes
+        `<preempt_dir>/<step>.pt` before the train-end callbacks. With a
+        `profile_dir`, epoch 0's steps from profile_steps[0] up to
+        profile_steps[1] are traced (torch.profiler, a Chrome trace under
+        profile_dir; closed at the epoch's end if the epoch is shorter)."""
         callbacks = list(callbacks or [])
         history = History()
         callbacks.append(history)
@@ -578,13 +635,19 @@ class Trainer:
             if per_epoch:
                 start_epoch = min(state.step // per_epoch, epochs)
                 skip = state.step % per_epoch
+                log.info("resuming at epoch %d, batch %d (step %d)",
+                         start_epoch, skip, state.step)
+        # a previous fit's early stop or handled preemption must not make
+        # this run train zero steps (the LR scale carries over on purpose)
         self.control["stop"] = False
+        self.control.pop("preempt", None)
         for cb in callbacks:
             cb.on_train_begin(self)
         lr_scale = 1.0
         logs: Dict[str, float] = {}
+        trace, traced = None, False
         for epoch in range(start_epoch, epochs):
-            if self.control["stop"]:
+            if self.control["stop"] or self.control.get("preempt"):
                 break
             if self.control["lr_scale"] != lr_scale:
                 lr_scale = self.control["lr_scale"]
@@ -602,6 +665,14 @@ class Trainer:
             n_steps, n_examples = 0, 0
             running: Dict[str, torch.Tensor] = {}
             for batch in prefetch(checked_batches(self.model, raw)):
+                if profile_dir is not None and epoch == 0:
+                    if not traced and n_steps >= profile_steps[0]:
+                        trace, traced = start_trace(profile_dir), True
+                    elif trace is not None and n_steps >= profile_steps[1]:
+                        stop_trace(trace)
+                        trace = None
+                if self.control.get("preempt"):
+                    break
                 state, metrics = self._step(state, self._put(batch,
                                                              check=False))
                 n_steps += 1
@@ -611,12 +682,21 @@ class Trainer:
                 if n_steps % log_every == 0:
                     log.info("epoch %d step %d: %s", epoch, n_steps, " ".join(
                         f"{k}={float(v):.5f}" for k, v in metrics.items()))
+            if trace is not None:
+                # the epoch ended before the window closed: an open trace
+                # would be lost
+                stop_trace(trace)
+                trace = None
             # the read-back waits for the card, so dt covers the epoch's work
             logs = {k: float(v) / max(n_steps, 1) for k, v in running.items()}
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
             logs["examples_per_sec"] = n_examples / max(dt, 1e-9)
+            if self.control.get("preempt"):
+                # a spot VM's grace window is seconds: checkpoint first, no
+                # validation pass and no epoch-end callbacks
+                break
             if valid_ds is not None:
                 logs.update(self.evaluate(state, valid_ds))
             for cb in callbacks:
@@ -627,9 +707,33 @@ class Trainer:
                 print_table([[k, f"{v:.6g}"] for k, v in sorted(logs.items())],
                             headers=["metric", "value"],
                             title=f"Epoch {epoch} ({dt:.1f}s, {n_steps} steps)")
+        preempted = bool(self.control.pop("preempt", False))
+        if preempted and preempt_dir:
+            path = save_step(preempt_dir, state, state.step)
+            log.warning("preempted: checkpoint of step %d written to %s",
+                        state.step, path)
         for cb in callbacks:
             cb.on_train_end(self, state, logs)
-        return {"state": state, "history": history.epochs}
+        return {"state": state, "history": history.epochs,
+                "preempted": preempted}
+
+
+def install_preemption_handler(trainer: Trainer, signals=None
+                               ) -> Dict[int, Any]:
+    """SIGTERM and SIGINT (or `signals`) set trainer.control["stop"] and
+    ["preempt"]: `fit` finishes the step in flight, writes its preempt_dir
+    checkpoint and returns. Returns {signal: the handler it replaced}, so a
+    caller can put them back (`signal.signal(s, h)` for each); the JAX
+    function returns nothing. Call from the main thread."""
+    sigs = signals if signals is not None else (signal.SIGTERM, signal.SIGINT)
+
+    def handler(signum, frame):
+        log.warning("signal %s: finishing the current step, then a "
+                    "checkpoint and a clean exit", signum)
+        trainer.control["stop"] = True
+        trainer.control["preempt"] = True
+
+    return {s: signal.signal(s, handler) for s in sigs}
 
 
 def _chain_first(first, rest):

@@ -5,6 +5,7 @@ conftest.py, torch to one thread here (the tier-1 run uses several xdist
 workers). Inputs are built with numpy from a seed and handed to both sides.
 """
 import os
+import signal
 
 import numpy as np
 import torch
@@ -127,3 +128,72 @@ def agree(a, b, atol, score_of=None):
             assert abs(score_of(r, ia[r, c]) - score_of(r, ib[r, c])) <= atol
         else:
             assert abs(sa[r, c] - sb[r, c]) <= atol
+
+
+def demo_batches(n: int, seed: int, batch: int = 64) -> "Batches":
+    """n synthetic demo_recall batches (the port's synthetic_batch, seeds
+    seed, seed + 1, ...) as a Batches dataset."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.schema import compile_schema
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    schema = compile_schema(Configuration(DEMO_CONF).features)
+    return Batches([synthetic_batch(schema, batch, seed=seed + i)
+                    for i in range(n)])
+
+
+def demo_trainer(networks, dropout=0.3, seed=9, device="cpu", **kw):
+    """A port Trainer on `device` over a demo_recall Dssm (Networks
+    overrides `networks`, weights from seed 0), split "sparse_set" unless
+    `kw` says otherwise."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.train.trainer import Trainer
+    conf = Configuration(DEMO_CONF)
+    conf.networks.update(networks)
+    model, _ = build_network(conf.networks["class"],
+                             {"conf": conf, "dropout": dropout,
+                              "device": device, "seed": 0})
+    kw.setdefault("split_strategy", "sparse_set")
+    return Trainer(model, learning_rate=1e-3, device=device, seed=seed, **kw)
+
+
+class Batches:
+    """Fixed batches with a length and `iter_from(skip, epoch)` (odd epochs
+    run in reverse), as the record Dataset resumes."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return self.iter_from(0)
+
+    def iter_from(self, skip=0, epoch=0):
+        order = self.batches[::-1] if epoch % 2 else self.batches
+        return iter(order[skip:])
+
+
+class KillAt:
+    """A dataset that sends this process SIGTERM as it yields its n-th batch
+    (counted from the start of each iteration; prefetch's thread draws it,
+    the handler runs in the main thread)."""
+
+    def __init__(self, inner, n):
+        self.inner, self.n = inner, n
+
+    def __len__(self):
+        return len(self.inner)
+
+    def _kill(self, it):
+        for i, b in enumerate(it):
+            if i == self.n:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield b
+
+    def __iter__(self):
+        return self._kill(iter(self.inner))
+
+    def iter_from(self, skip=0, epoch=0):
+        return self._kill(self.inner.iter_from(skip, epoch))

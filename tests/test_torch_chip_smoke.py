@@ -24,7 +24,7 @@ SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
 REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
              "flash_attention", "slice", "train", "ranking", "train_options",
-             "ranking_zoo",
+             "long_runs", "ranking_zoo",
              "attention_ranking", "text_recall", "matching_zoo",
              "export_serve", "sq_search", "ann", "encode", "serve",
              "text_search", "cli")
@@ -135,6 +135,11 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
     assert opts["logq"]["buckets_seen"] == sorted(opts["logq"]["buckets_seen"])
     bf16 = opts["bf16"]
     assert 0 < max(bf16["row_l2_vs_f32"].values()) <= bf16["tolerance"]
+    lr = phases["long_runs"]
+    assert lr["resume"]["bitwise"] and lr["resume"]["steps"] == 12
+    assert 1 <= lr["resume"]["preempted_at_step"] <= 4
+    assert lr["profile"]["optimizer_steps"] == 3
+    assert lr["finetune"]["blocked"].startswith("model promotion blocked")
     zoo = phases["ranking_zoo"]["models"]
     assert sorted(zoo) == ["Cold", "DeepFm", "Din", "Escm2-dr", "Escm2-ips",
                            "Esim", "Essm", "Mmoe", "TabTransformer", "XDeepFm"]

@@ -29,7 +29,10 @@ within 1e-5, and a Dcn split step's table update equals the plain update
 (p bitwise, acc rtol 1e-6), as does a Que2Search step's on the dense table
 path. Kernel 6 holds at SiameseEncoder's BERT-Base shape with trailing-pad
 masks, forward and gradient; SiameseEncoder's and Pdm's gradients on the
-card agree with the CPU's as the attention rankers' do.
+card agree with the CPU's as the attention rankers' do. A Dssm run
+preempted by SIGTERM, restored and resumed on the card equals the
+uninterrupted run bit for bit (dropout 0.3, torch's deterministic
+algorithms, so the duplicate sums add in one order).
 
 Training steps on the card agree with the same steps on the CPU; the GEMMs
 and the duplicate sums add in another order on each device, so gradients
@@ -1369,3 +1372,45 @@ def test_training_options_launch_their_kernels(cuda, case):
             "partitioned_adamw": [2 * n_tables, 2 * n_tables, 0,
                                   2 * n_tables]}[case]
     assert got == want, (case, got)
+
+
+@pytest.mark.parametrize("mode,strategy", [("split", "sparse_set"),
+                                           ("split", "dense"),
+                                           ("dense", "dense")])
+def test_preempted_and_resumed_run_is_bitwise_on_the_card(cuda, tmp_path,
+                                                          mode, strategy):
+    import signal
+    from recommendflow_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                          state_to_host)
+    from recommendflow_tpu_torch.train.trainer import \
+        install_preemption_handler
+    nets = {"tower_units": [64, 32]}
+    ds = tp.demo_batches(4, seed=80)
+
+    def trainer():
+        return tp.demo_trainer(nets, device=cuda, table_update=mode,
+                               split_strategy=strategy)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t1 = trainer()
+    saved = install_preemption_handler(t1)
+    try:
+        a = trainer().fit(ds, epochs=2, verbose=False)["state"]
+        r = t1.fit(tp.KillAt(ds, 3), epochs=2, preempt_dir=str(tmp_path),
+                   verbose=False)
+        assert r["preempted"] and 1 <= r["state"].step <= 4
+        t2 = trainer()
+        s2 = restore_checkpoint(str(tmp_path), t2.init_state(ds.batches[0]))
+        b = t2.fit(ds, epochs=2, state=s2, verbose=False)["state"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for s, h in saved.items():
+            signal.signal(s, h)
+    assert a.step == b.step == 8
+    ha, hb = state_to_host(a), state_to_host(b)
+    for k, v in ha["model"].items():
+        assert torch.equal(v, hb["model"][k]), k
+    for k, v in ha["table_acc"].items():
+        assert torch.equal(v, hb["table_acc"][k]), k
+    for i, st in ha["optimizer"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v, hb["optimizer"]["state"][i][k]), (i, k)
