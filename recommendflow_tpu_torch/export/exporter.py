@@ -23,11 +23,20 @@ sparse feature's ids on the host against its table before they are copied
 (ValueError), because the kernel's device-side assert at a bad id would end
 the process's use of the card. The JAX package's TensorFlow formats
 (`export_savedmodel`, `load_savedmodel`, `load_frozen_pb`) are not ported.
+
+On a card, `ServingModel` runs the program as one CUDA graph, the
+counterpart of the JAX export's single compiled call: when it is built it
+calls the program once on static inputs at the exported shapes (zeros: id 0
+is every table's pad row), then captures that call; `predict` copies the
+checked inputs into the static buffers from pinned memory, replays and
+copies the outputs to the host, under a lock (the static buffers are one
+per model). The CPU runs the program's fx module.
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 import zipfile
 from collections import Counter
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
@@ -41,6 +50,7 @@ from recommendflow_tpu_torch.ops.cuda import embedding_bag  # noqa: F401
 from recommendflow_tpu_torch.ops.cuda import flash_attention  # noqa: F401
 from recommendflow_tpu_torch.data.schema import check_ids_in_range
 from recommendflow_tpu_torch.device import resolve_device
+from recommendflow_tpu_torch.train.graphs import StepGraph
 from recommendflow_tpu_torch.train.trainer import to_device
 
 MAGIC = "RFX-TORCH1"
@@ -164,7 +174,8 @@ def custom_op_nodes(program: torch.export.ExportedProgram) -> Dict[str, int]:
 
 class ServingModel:
     """A reloaded export on one device: `.predict(batch)` with a batch dict
-    of the exported shapes."""
+    of the exported shapes; on a card the program's CUDA graph (module
+    docstring)."""
 
     def __init__(self, program: torch.export.ExportedProgram,
                  meta: Dict[str, Any], device: torch.device):
@@ -173,6 +184,19 @@ class ServingModel:
         self.batch_keys = meta["batch_keys"]
         self.device = device
         self._module = program.module()
+        self._lock = threading.Lock()
+        self.graph: Optional[StepGraph] = None
+        if device.type == "cuda":
+            self.graph = StepGraph(device, "exported program")
+            zeros = {k: np.zeros(meta["shapes"][k], meta["dtypes"][k])
+                     for k in self.batch_keys}
+            with torch.no_grad():
+                for _ in range(2):      # the eager call, then the capture
+                    self.graph(self._run, zeros)
+
+    def _run(self, inputs: Mapping[str, torch.Tensor]):
+        """The program on a batch dict of device tensors."""
+        return self._module(*(inputs[k] for k in self.batch_keys))
 
     @classmethod
     def load(cls, path: str, device: Union[str, torch.device] = "cuda"
@@ -223,11 +247,19 @@ class ServingModel:
             check_ids_in_range(self.meta["id_rows"], arrays)
         except IndexError as e:
             raise ValueError(str(e)) from None
-        inputs = to_device({k: arrays[k].astype(self.meta["dtypes"][k],
-                                                copy=False)
-                            for k in self.batch_keys}, self.device)
+        host = {k: arrays[k].astype(self.meta["dtypes"][k], copy=False)
+                for k in self.batch_keys}
         with torch.no_grad():
-            out = self._module(*inputs.values())
-        if isinstance(out, dict):
-            return {k: v.cpu().numpy() for k, v in out.items()}
-        return {"output": out.cpu().numpy()}
+            if self.graph is None:
+                out = self._run(to_device(host, self.device))
+                return _to_numpy(out)
+            with self._lock:      # one set of static buffers
+                return _to_numpy(self.graph(self._run, host))
+
+
+def _to_numpy(out) -> Dict[str, np.ndarray]:
+    """A program's outputs on the host (a copy: a replay's buffers are
+    overwritten by the next)."""
+    if isinstance(out, dict):
+        return {k: v.cpu().numpy() for k, v in out.items()}
+    return {"output": out.cpu().numpy()}

@@ -75,6 +75,8 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from recommendflow_tpu_torch.train.checkpoint import assign_param_state
+
 Tree = Dict[str, Any]
 
 _DENSE = {"kernel": "weight", "bias": "bias"}
@@ -273,11 +275,12 @@ def load_train_state(state, tree: Mapping[str, Any]):
     if sorted(mu) != sorted(dense) or sorted(nu) != sorted(dense):
         raise KeyError(f"Adam moments {sorted(mu)} do not match the dense "
                        f"parameters {sorted(dense)}")
+    group = {id(p): g for g in state.optimizer.param_groups
+             for p in g["params"]}
     for name, p in dense.items():
-        state.optimizer.state[p] = {
+        assign_param_state(state.optimizer, group[id(p)], p, {
             "step": torch.tensor(float(opt["count"])),
-            "exp_avg": mu[name].to(p.device).clone(),
-            "exp_avg_sq": nu[name].to(p.device).clone()}
+            "exp_avg": mu[name], "exp_avg_sq": nu[name]})
     state.step = int(tree["step"])
     return state
 

@@ -67,7 +67,10 @@ def sinusoidal_position_encoding(length: int, dim: int,
     """Standard sin/cos positional encoding [L, D]."""
     pos = torch.arange(length, dtype=dtype, device=device)[:, None]
     i = torch.arange(dim, dtype=dtype, device=device)[None, :]
-    angle = pos / torch.pow(torch.tensor(10000.0, dtype=dtype, device=device),
+    # the base filled on the device (no host copy: a CUDA graph captures
+    # this), rounded to dtype as a host scalar tensor would be
+    base = torch.full((), 10000.0, dtype=dtype, device=device)
+    angle = pos / torch.pow(base,
                             (2 * torch.div(i, 2, rounding_mode="floor")) / dim)
     return torch.where(i % 2 == 0, torch.sin(angle), torch.cos(angle))
 

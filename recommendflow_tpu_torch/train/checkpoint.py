@@ -8,7 +8,15 @@ checkpoints are not read; weights cross between the packages through
 `interop.py`.
 
 A checkpoint written before the seed travelled in it loads with the state's
-own seed (the Trainer's). `save_variables` / `restore_variables` write and
+own seed (the Trainer's). A restore writes into the state's tensors in place
+(CUDA graphs of the step read and write those very tensors,
+train/graphs.py), and the dense Adam's state is put where this state's Adam
+keeps it whichever device wrote it: its step on the card for the
+`capturable` Adam of a card, on the host for the CPU's, and its learning
+rate in the state's own form (a device tensor on a card, a float on the
+CPU), from the checkpoint's host copy (`HOST_LR`) where it has one. So a
+checkpoint written by either path, or by the port before its card Adam was
+capturable (step on the host, LR a float), loads on either. `save_variables` / `restore_variables` write and
 read a weights-only file (a state dict, `torch.save`), and `backup_model`
 copies a model directory into a `YYYYMMDD` directory of a backup root,
 keeping the newest `keep_days`.
@@ -24,6 +32,9 @@ from typing import Any, Dict, Optional
 import torch
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
+# the key of a param group's LR as the host last wrote it, beside an LR that
+# lives in a device tensor (the capturable Adam on a card)
+HOST_LR = "host_lr"
 
 
 def _to_cpu(obj: Any) -> Any:
@@ -50,7 +61,10 @@ def load_state(state, saved: Dict[str, Any]):
     its devices; the saved seed replaces the state's (a file without one
     keeps it). Returns state."""
     state.model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+    if isinstance(state.optimizer, torch.optim.Optimizer):
+        load_torch_optimizer(state.optimizer, saved["optimizer"])
+    else:
+        state.optimizer.load_state_dict(saved["optimizer"])
     if sorted(saved["table_acc"]) != sorted(state.table_acc):
         raise KeyError(f"accumulators {sorted(saved['table_acc'])} do not "
                        f"match the state's {sorted(state.table_acc)}")
@@ -60,6 +74,62 @@ def load_state(state, saved: Dict[str, Any]):
     state.step = int(saved["step"])
     state.seed = int(saved.get("seed", state.seed))
     return state
+
+
+def assign_param_state(opt: torch.optim.Optimizer, group: Dict[str, Any],
+                       param: torch.Tensor, values: Dict[str, Any]) -> None:
+    """Set an optimizer's state of `param` (in `group`) to `values`, in
+    place where it has a tensor of the same shape and dtype already; the
+    step on the parameter's device as f32 for a capturable group, on the
+    host otherwise."""
+    have = opt.state.get(param, {})
+    out = dict(have)
+    for k, v in values.items():
+        if not isinstance(v, torch.Tensor):
+            out[k] = v
+            continue
+        if k == "step":
+            v = v.to(torch.float32)
+            dev = param.device if group.get("capturable") else \
+                torch.device("cpu")
+        else:
+            dev = param.device
+        keep = have.get(k)
+        if isinstance(keep, torch.Tensor) and keep.shape == v.shape \
+                and keep.dtype == v.dtype and keep.device == dev:
+            with torch.no_grad():
+                keep.copy_(v)
+            out[k] = keep
+        else:
+            out[k] = v.to(dev, copy=True)
+    opt.state[param] = out
+
+
+def load_torch_optimizer(opt: torch.optim.Optimizer,
+                         saved: Dict[str, Any]) -> None:
+    """`opt.load_state_dict(saved)` into the optimizer's own tensors, each
+    group keeping its own `capturable` flag and LR form (module
+    docstring)."""
+    have = {p: dict(st) for p, st in opt.state.items()}
+    mine = [{k: v for k, v in g.items() if k != "params"}
+            for g in opt.param_groups]
+    opt.load_state_dict(saved)
+    loaded = {p: opt.state.pop(p) for p in list(opt.state)}
+    opt.state.update(have)
+    for p in [p for p in have if p not in loaded]:
+        del opt.state[p]      # no state saved for it: as load_state_dict
+    for group, own in zip(opt.param_groups, mine):
+        group["capturable"] = own.get("capturable", False)
+        lr = float(group.get(HOST_LR, group["lr"]))
+        if isinstance(own["lr"], torch.Tensor):
+            own["lr"].fill_(lr)
+            group["lr"], group[HOST_LR] = own["lr"], lr
+        else:
+            group["lr"] = lr
+            group.pop(HOST_LR, None)
+        for p in group["params"]:
+            if p in loaded:
+                assign_param_state(opt, group, p, loaded[p])
 
 
 def _write(path: str, obj: Any) -> str:

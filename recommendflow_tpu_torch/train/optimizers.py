@@ -286,7 +286,14 @@ class OptaxOptimizer:
 
     `param_groups[0]["lr"]` is optax's injected learning rate: a schedule
     re-derives it from the update count before each update (so rewriting
-    it has no effect then), a fixed rate keeps what is written there."""
+    it has no effect then), a fixed rate keeps what is written there.
+
+    An update is two halves, so that a CUDA graph can hold the second:
+    `prepare` on the host (the LR at this count, the count + 1 and optax's
+    bias corrections 1 - b^count, in f32 as optax computes them, written
+    into 0-d tensors on the parameters' device) and `apply` on the device
+    (reading those tensors; the moments and accumulators updated in
+    place). `step` is both."""
 
     def __init__(self, spec: OptimizerSpec,
                  named_params: Sequence[Tuple[str, torch.nn.Parameter]]):
@@ -301,6 +308,13 @@ class OptaxOptimizer:
             "params": [p for n, p in self.params.items()
                        if n not in self.tables]}]
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        dev = next((p.device for p in self.params.values()),
+                   torch.device("cpu"))
+        # what `apply` reads, written by `prepare`: the LR and the two bias
+        # corrections
+        self._lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self._bc = [torch.ones((), dtype=torch.float32, device=dev)
+                    for _ in _ADAM]
         with torch.no_grad():
             for n, p in self.params.items():
                 if n in self.tables:
@@ -312,17 +326,35 @@ class OptaxOptimizer:
                     self.state[n] = {"sum_of_squares": torch.full_like(
                         p, ADAGRAD_INIT_ACCUMULATOR)}
 
-    @torch.no_grad()
     def step(self) -> None:
+        self.prepare()
+        self.apply()
+
+    def prepare(self) -> None:
+        """The host half of an update: this count's LR, the count + 1 and
+        the bias corrections at the new count, written to the device."""
         spec = self.spec
         if callable(spec.learning_rate):
             self.param_groups[0]["lr"] = float(spec.learning_rate(self.count))
-        lr = self.param_groups[0]["lr"]
+        self.count += 1
+        self._lr.fill_(self.param_groups[0]["lr"])
+        if spec.name in ("adam", "adamw", "lamb"):
+            # optax's 1 - b ** count in f32 (b rounded to f32 first: 1 -
+            # 0.999 is 1.3e-5 off 1 - f32(0.999))
+            for t, b in zip(self._bc, _ADAM):
+                t.fill_(float(1 - torch.tensor(b, dtype=torch.float32)
+                              ** self.count))
+
+    @torch.no_grad()
+    def apply(self) -> None:
+        """The device half of an update, from the parameters' .grad and
+        what `prepare` wrote."""
+        spec = self.spec
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in self.params.items()}
         if spec.clip_norm > 0:
             grads = _clip_by_global_norm(grads, spec.clip_norm)
-        self.count += 1
+        neg_lr = -self._lr
         for n, p in self.params.items():
             g, st = grads[n], self.state.get(n)
             if n in self.tables:
@@ -330,7 +362,7 @@ class OptaxOptimizer:
                                        lr=spec.table_learning_rate)
                 continue
             u = self._direction(g, p, st)
-            p.copy_((p.float() + u.float() * (-lr)).to(p.dtype))
+            p.copy_((p.float() + u.float() * neg_lr).to(p.dtype))
 
     def _direction(self, g: torch.Tensor, p: torch.Tensor,
                    st: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
@@ -338,21 +370,20 @@ class OptaxOptimizer:
         name = self.spec.name
         if name == "sgd":
             return g
+        # the state is updated in place: a captured update writes where the
+        # next one reads
         if name == "adagrad":
-            sos = g * g + st["sum_of_squares"]
-            st["sum_of_squares"] = sos
+            sos = st["sum_of_squares"]
+            sos.copy_(g * g + sos)
             inv = torch.where(sos > 0, torch.rsqrt(sos + _EPS[name]),
                               torch.zeros_like(sos))
             return inv * g
         b1, b2 = _ADAM
-        mu = (1 - b1) * g + b1 * st["mu"]
-        nu = (1 - b2) * (g * g) + b2 * st["nu"]
-        st["mu"], st["nu"] = mu, nu
-        # optax's bias corrections: 1 - b ** count in f32 (b rounded to
-        # f32 first: 1 - 0.999 is 1.3e-5 off 1 - f32(0.999)), then cast to
-        # the moment's dtype
-        bc1, bc2 = (1 - torch.tensor(b, dtype=torch.float32) ** self.count
-                    for b in (b1, b2))
+        mu, nu = st["mu"], st["nu"]
+        mu.copy_((1 - b1) * g + b1 * mu)
+        nu.copy_((1 - b2) * (g * g) + b2 * nu)
+        # the bias corrections (prepare), cast to the moment's dtype
+        bc1, bc2 = self._bc
         u = (mu / bc1.to(mu.dtype)) / (torch.sqrt(nu / bc2.to(nu.dtype))
                                        + _EPS[name])
         if name in ("adamw", "lamb"):

@@ -41,6 +41,22 @@ checkpoint's seed wins over the Trainer's `seed`, which only seeds a fresh
 state. Reseeding sets the generator's seed and offset on the host; the card
 is not waited for.
 
+Dispatch (the JAX trainer's `train_steps` and `fit(scan_steps=)`):
+`train_steps(state, batches)` runs len(batches) steps and returns their mean
+metrics; `fit(scan_steps=K)` stacks K batches at a time in the prefetch
+thread and runs each stack through `train_steps`, the tail of fewer than K
+as single steps (`scan_steps=None`: 8 on a card, 1 on the CPU). On a card
+each step of `train_steps` is a replay of a CUDA graph of the step's device
+work (train/graphs.py: one graph per batch signature, captured at the
+signature's second step, the first runs eagerly), after the host has
+reseeded the generator and written the learning rate, so a replay computes
+what the eager step computes, bit for bit; on the CPU the steps run eagerly.
+`predict` and `evaluate` replay a graph of the eval forward on a card in the
+same way. The dense Adam on a card is `capturable` with its learning rate in
+a device tensor (`set_learning_rate` writes it; `current_learning_rate`
+reads the host's copy); the CPU keeps the plain Adam with a float LR.
+Preemption is checked before every step, inside a stack too.
+
 Long runs: `fit(preempt_dir=)` with `install_preemption_handler` stops after
 the step in flight on SIGTERM or SIGINT, skips validation and the epoch-end
 callbacks and writes `<preempt_dir>/<step>.pt`, from which a later `fit`
@@ -80,10 +96,13 @@ from recommendflow_tpu_torch.ops.embedding import (fused_group_ids,
                                                    physical_ids, rows_key,
                                                    touched_stored_rows)
 from recommendflow_tpu_torch.train.callbacks import Callback, History
-from recommendflow_tpu_torch.train.checkpoint import load_state, save_step
+from recommendflow_tpu_torch.train.checkpoint import (HOST_LR, load_state,
+                                                      save_step)
+from recommendflow_tpu_torch.train.graphs import StepGraph, as_tensor
 from recommendflow_tpu_torch.train.optimizers import (
-    STRATEGIES, OptimizerSpec, default_table_lr, init_accumulator,
-    make_lr_schedule, sparse_rowwise_adagrad_update, split_table_update)
+    STRATEGIES, OptaxOptimizer, OptimizerSpec, default_table_lr,
+    init_accumulator, make_lr_schedule, sparse_rowwise_adagrad_update,
+    split_table_update)
 # make_optimizer lives in the JAX package's trainer module: importable here
 from recommendflow_tpu_torch.train.optimizers import (  # noqa: F401
     make_optimizer, make_partitioned_optimizer)
@@ -127,14 +146,15 @@ LEGACY_SPARSE_FIXED_S = 2.0e-4
 
 def to_device(batch: Mapping[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
-    """A host numpy batch -> tensors on `device` (copied asynchronously from
-    pinned memory when the device is a card)."""
+    """A batch of numpy arrays or tensors -> tensors on `device` (a host
+    array copied asynchronously from pinned memory when the device is a
+    card)."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
+        t = as_tensor(v)
+        if device.type == "cuda" and t.device.type == "cpu":
             t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
+        out[k] = t.to(device)
     return out
 
 
@@ -159,24 +179,51 @@ def checked_batches(model: torch.nn.Module,
     return map(functools.partial(check_host_batch, model.schema), batches)
 
 
+def eval_outputs(model: torch.nn.Module, batch: Mapping[str, Any],
+                 device: torch.device, graph: Optional[StepGraph] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """The model's eval outputs on one host batch (no_grad and eval mode are
+    the caller's): through `graph` (a replay, its outputs cloned) on a card,
+    eagerly on the CPU."""
+    if graph is None:
+        return model(to_device(batch, device))
+    return {k: v.clone() for k, v in graph(model, batch).items()}
+
+
 def predict(model: torch.nn.Module, dataset: Iterable[Mapping[str, np.ndarray]],
-            device: Union[str, torch.device] = "cuda") -> Dict[str, np.ndarray]:
+            device: Union[str, torch.device] = "cuda",
+            graph: Optional[StepGraph] = None) -> Dict[str, np.ndarray]:
     """Stacked model outputs over a dataset of host batches, as numpy.
 
     The model runs in eval mode under no_grad on `device` (default "cuda";
-    raises without a card unless "cpu" is asked for). Host batches are
-    prepared and their ids checked (IndexError) in a background thread
-    (data.pipeline.prefetch) while the card runs; outputs stay on the device
-    until the end, so the host does not wait on the card batch by batch."""
+    raises without a card unless "cpu" is asked for); on a card through a
+    CUDA graph of its forward per batch shape (`graph`, or one for this
+    call, whose capture at the second batch pays off only over a dataset
+    of more than a few batches: PERF.md §6). Host batches are prepared and
+    their ids checked (IndexError) in a background thread
+    (data.pipeline.prefetch) while the card runs; outputs stay on the
+    device until the end, so the host does not wait on the card batch by
+    batch."""
     dev = resolve_device(device)
+    if graph is None and dev.type == "cuda":
+        graph = StepGraph(dev, "predict")
     model.eval()
     chunks: Dict[str, List[torch.Tensor]] = {}
     with torch.no_grad():
         for batch in prefetch(checked_batches(model, dataset)):
-            out = model(to_device(batch, dev))
+            out = eval_outputs(model, batch, dev, graph)
             for k, v in out.items():
                 chunks.setdefault(k, []).append(v)
     return {k: torch.cat(v).cpu().numpy() for k, v in chunks.items()}
+
+
+def resolve_scan_steps(scan_steps: Optional[int],
+                       device: Union[str, torch.device]) -> int:
+    """fit's steps per stack: `scan_steps`, or with None 8 on a card and 1
+    on the CPU (the JAX trainer's 8 on an accelerator and 1 on the CPU)."""
+    if scan_steps is not None:
+        return max(int(scan_steps), 1)
+    return 8 if torch.device(device).type == "cuda" else 1
 
 
 def split_costs(table_bytes: int, n_ids: int) -> Tuple[float, float]:
@@ -231,15 +278,24 @@ def device_generator(device: torch.device) -> torch.Generator:
 
 def set_learning_rate(state: "TrainState", lr: float) -> None:
     """Rewrite the dense optimizer's injected LR (no effect on the next
-    update while a schedule is active: it re-derives the LR every step)."""
+    update while a schedule is active: it re-derives the LR every step). An
+    LR in a device tensor (the capturable Adam on a card) is written in
+    place, where a captured step reads it, and its value kept on the host
+    beside it (`HOST_LR`)."""
     for group in state.optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+            group[HOST_LR] = float(lr)
+        else:
+            group["lr"] = lr
 
 
 def current_learning_rate(state: "TrainState") -> float:
     """The dense optimizer's injected LR: the last update's (the schedule's
-    value at count 0 before any)."""
-    return float(state.optimizer.param_groups[0]["lr"])
+    value at count 0 before any), as the host wrote it (no read from the
+    card)."""
+    group = state.optimizer.param_groups[0]
+    return float(group.get(HOST_LR, group["lr"]))
 
 
 @dataclass
@@ -331,6 +387,21 @@ class Trainer:
         self._planned = False
         self.seed = seed
         self.control: Dict[str, Any] = {"stop": False, "lr_scale": 1.0}
+        # CUDA graphs of the train step and of the eval forward (a card only)
+        self._graphs: Dict[str, StepGraph] = {}
+
+    def graph(self, kind: str) -> StepGraph:
+        """The trainer's StepGraph of `kind` ("train" or "eval") on its
+        card."""
+        if kind not in self._graphs:
+            self._graphs[kind] = StepGraph(self.device, f"{kind} step of "
+                                           f"{type(self.model).__name__}")
+        return self._graphs[kind]
+
+    def graph_stats(self) -> Dict[str, List[Dict[str, Any]]]:
+        """Per StepGraph: each captured signature's capture seconds, pool
+        MB, replays and launches a replay (graphs.StepGraph.stats)."""
+        return {kind: g.stats() for kind, g in self._graphs.items()}
 
     # ------------------------------------------------------------- state
     def _put(self, batch: Mapping[str, Any], check: bool = True
@@ -339,9 +410,6 @@ class Trainer:
         `check_host_batch` unless `check` is off (prefetch checked them)."""
         if check:
             check_host_batch(self.model.schema, batch)
-        if all(isinstance(v, torch.Tensor) for v in batch.values()):
-            return {k: v.to(self.device, non_blocking=True)
-                    for k, v in batch.items()}
         return to_device(batch, self.device)
 
     def plan(self, sample_batch: Mapping[str, Any]) -> List[int]:
@@ -360,6 +428,8 @@ class Trainer:
         self._planned = True
         self._split_dims = {}
         self._sparse_dims = []
+        if "train" in self._graphs:      # the step the graphs hold changes
+            self._graphs["train"].reset()
         if self.optimizer is not None:
             return []
         if not self.split:
@@ -422,9 +492,18 @@ class Trainer:
         else:
             dense = [p for name, p in self.model.named_parameters()
                      if not _TABLE.search(name)]
-            optimizer = torch.optim.Adam(dense, lr=self.base_lr)
-            if self.lr_schedule is not None:
-                optimizer.param_groups[0]["lr"] = float(self.lr_schedule(0))
+            lr = float(self.lr_schedule(0)) if self.lr_schedule is not None \
+                else self.base_lr
+            if self.device.type == "cuda":
+                # a captured step reads the LR and the step count from the
+                # card; the eager steps run the same Adam
+                optimizer = torch.optim.Adam(
+                    dense, lr=torch.tensor(lr, dtype=torch.float32,
+                                           device=self.device),
+                    capturable=True)
+                optimizer.param_groups[0][HOST_LR] = lr
+            else:
+                optimizer = torch.optim.Adam(dense, lr=lr)
         if self._sparse_dims:
             log.info("touched-row table updates for %s (from the dense table "
                      "gradient)", [f"dim{d}" for d in self._sparse_dims])
@@ -543,16 +622,87 @@ class Trainer:
 
     def _step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """train_step on a batch that is on the device already."""
+        self._host_step(state)
+        metrics = self._device_step(state, batch)
+        state.step += 1
+        return state, metrics
+
+    def _host_step(self, state: TrainState) -> None:
+        """What the host decides for step `state.step`, before its device
+        work: the dropout reseed, the schedule's LR and, for a chosen
+        optimizer, its update count and LR (written to the card)."""
         device_generator(self.device).manual_seed(
             step_seed(state.seed, state.step))
-        loss, aux, phys, rows = self._forward_backward(batch)
         if self.lr_schedule is not None:
             set_learning_rate(state, float(self.lr_schedule(state.step)))
-        state.optimizer.step()
+        if isinstance(state.optimizer, OptaxOptimizer):
+            state.optimizer.prepare()
+
+    def _device_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The step's device work, which a CUDA graph captures: forward,
+        backward, the dense update and the table updates. Returns the
+        metrics as device scalars."""
+        loss, aux, phys, rows = self._forward_backward(batch)
+        if isinstance(state.optimizer, OptaxOptimizer):
+            state.optimizer.apply()
+        else:
+            state.optimizer.step()
         self._apply_table_updates(state, phys, rows, batch)
-        state.step += 1
-        return state, {"loss": loss.detach(),
-                       **{k: v.detach() for k, v in aux.items()}}
+        return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+
+    def train_steps(self, state: TrainState,
+                    batches: List[Mapping[str, Any]]):
+        """len(batches) steps, in place on `state` (the JAX trainer's
+        `train_steps`). Returns (state, metrics): each metric's mean over the
+        steps, as device scalars. Host batches' ids are checked first. On a
+        card each step replays the step's CUDA graph (module docstring)."""
+        for b in batches:
+            check_host_batch(self.model.schema, b)
+        state, metrics, _ = self._train_steps_stacked(
+            state, _stack_batches(batches))
+        return state, metrics
+
+    def _train_steps_stacked(self, state: TrainState,
+                             stacked: Mapping[str, Any],
+                             stop: Optional[Callable[[], bool]] = None):
+        """Steps over a stack of batches ([K, B, ...] per key; ids checked).
+        `stop()` is asked before every step: true ends the stack early.
+        Returns (state, mean metrics, steps run)."""
+        k = len(next(iter(stacked.values())))
+        stacked = {key: as_tensor(v) for key, v in stacked.items()}
+        graph = None
+        if self.device.type == "cuda":
+            stacked = {key: v.pin_memory() if v.device.type == "cpu" else v
+                       for key, v in stacked.items()}
+            graph = self.graph("train")
+            graph.bind(state.optimizer, *state.table_acc.values())
+        ms: List[Dict[str, torch.Tensor]] = []
+        for i in range(k):
+            if stop is not None and stop():
+                break
+            batch = {key: v[i] for key, v in stacked.items()}
+            if graph is None:
+                state, m = self._step(state, self._put(batch, check=False))
+            else:
+                self._host_step(state)
+                try:
+                    out = graph(functools.partial(self._device_step, state),
+                                batch)
+                except RuntimeError:
+                    # a failed capture ran no step: take back the host
+                    # part's update count (the reseed and LR are rewritten
+                    # by the next step's host part)
+                    if isinstance(state.optimizer, OptaxOptimizer):
+                        state.optimizer.count -= 1
+                    raise
+                m = {name: v.clone() for name, v in out.items()}
+                state.step += 1
+            ms.append(m)
+        if not ms:
+            return state, {}, 0
+        return state, {name: torch.stack([m[name] for m in ms]).mean(0)
+                       for name in ms[0]}, len(ms)
 
     def set_learning_rate(self, state: TrainState, lr: float) -> None:
         """The dense LR (the tables keep their fixed Adagrad LR); no effect
@@ -560,8 +710,17 @@ class Trainer:
         set_learning_rate(state, lr)
 
     # --------------------------------------------------------------- loops
+    def _eval_graph(self, model: torch.nn.Module) -> Optional[StepGraph]:
+        """The eval forward's StepGraph on a card (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        graph = self.graph("eval")
+        graph.bind(model)
+        return graph
+
     def predict(self, state: TrainState, dataset: Iterable) -> Dict[str, np.ndarray]:
-        return predict(state.model, dataset, self.device)
+        return predict(state.model, dataset, self.device,
+                       self._eval_graph(state.model))
 
     def evaluate(self, state: TrainState, dataset: Iterable) -> Dict[str, float]:
         """val_loss (the model's loss on eval outputs) and val_auc (cosine
@@ -573,10 +732,11 @@ class Trainer:
         except (AttributeError, ValueError):
             loss_fn = None
         losses, scores, labels = [], [], []
+        graph = self._eval_graph(model)
         model.eval()
         with torch.no_grad():
             for batch in prefetch(checked_batches(model, dataset)):
-                out = model(self._put(batch, check=False))
+                out = eval_outputs(model, batch, self.device, graph)
                 if "user" in out and "ad" in out:
                     y, u, a = out["label"], out["user"], out["ad"]
                     if loss_fn is not None:
@@ -603,6 +763,7 @@ class Trainer:
             profile_dir: Optional[str] = None,
             profile_steps: Tuple[int, int] = (10, 15),
             resume_data: bool = True, preempt_dir: Optional[str] = None,
+            scan_steps: Optional[int] = None,
             verbose: bool = True) -> Dict[str, Any]:
         """Train `epochs` epochs; returns {'state', 'history', 'preempted'}
         ('preempted': the run ended on control["preempt"]). Each epoch's
@@ -611,13 +772,22 @@ class Trainer:
         metrics and what the callbacks add. A given `state` with steps done
         resumes mid-stream when train_ds has a length (resume_data).
 
+        scan_steps: steps per stack (`resolve_scan_steps`: None is 8 on a
+        card, 1 on the CPU). The prefetch thread stacks that many batches of
+        one shape, which `_train_steps_stacked` runs (on a card as replays of
+        the step's CUDA graph); the rest of an epoch runs as single steps.
+        The same steps in the same order as scan_steps=1: a stack's metrics
+        are its mean, weighted by its steps in the epoch's.
+
         control["preempt"] (install_preemption_handler sets it) ends the
-        epoch after the step in flight; fit then skips validation and the
-        epoch-end callbacks and, with a `preempt_dir`, writes
-        `<preempt_dir>/<step>.pt` before the train-end callbacks. With a
-        `profile_dir`, epoch 0's steps from profile_steps[0] up to
-        profile_steps[1] are traced (torch.profiler, a Chrome trace under
-        profile_dir; closed at the epoch's end if the epoch is shorter)."""
+        epoch after the step in flight (checked before every step, inside a
+        stack too); fit then skips validation and the epoch-end callbacks
+        and, with a `preempt_dir`, writes `<preempt_dir>/<step>.pt` before
+        the train-end callbacks. With a `profile_dir`, epoch 0's steps from
+        profile_steps[0] up to profile_steps[1] are traced (torch.profiler,
+        a Chrome trace under profile_dir; closed at the epoch's end if the
+        epoch is shorter; a stack that crosses a bound moves it to the
+        stack's end, as in the JAX trainer)."""
         callbacks = list(callbacks or [])
         history = History()
         callbacks.append(history)
@@ -637,6 +807,7 @@ class Trainer:
                 skip = state.step % per_epoch
                 log.info("resuming at epoch %d, batch %d (step %d)",
                          start_epoch, skip, state.step)
+        k_scan = resolve_scan_steps(scan_steps, self.device)
         # a previous fit's early stop or handled preemption must not make
         # this run train zero steps (the LR scale carries over on purpose)
         self.control["stop"] = False
@@ -664,7 +835,10 @@ class Trainer:
             t0 = time.perf_counter()
             n_steps, n_examples = 0, 0
             running: Dict[str, torch.Tensor] = {}
-            for batch in prefetch(checked_batches(self.model, raw)):
+            items = checked_batches(self.model, raw)
+            if k_scan > 1:
+                items = _chunk_stack(items, k_scan)
+            for item in prefetch(items):
                 if profile_dir is not None and epoch == 0:
                     if not traced and n_steps >= profile_steps[0]:
                         trace, traced = start_trace(profile_dir), True
@@ -673,13 +847,24 @@ class Trainer:
                         trace = None
                 if self.control.get("preempt"):
                     break
-                state, metrics = self._step(state, self._put(batch,
-                                                             check=False))
-                n_steps += 1
-                n_examples += len(next(iter(batch.values())))
+                if isinstance(item, _Stack):
+                    state, metrics, inc = self._train_steps_stacked(
+                        state, item.stacked,
+                        stop=lambda: bool(self.control.get("preempt")))
+                    n_ex = item.rows * inc
+                else:
+                    state, metrics = self._step(state, self._put(item,
+                                                                 check=False))
+                    inc, n_ex = 1, _num_examples(item)
+                n_steps += inc
+                n_examples += n_ex
                 for k, v in metrics.items():
-                    running[k] = running[k] + v if k in running else v
-                if n_steps % log_every == 0:
+                    # a stack's metrics are its mean: weighted by its steps;
+                    # the first value is copied, never kept (a replay's
+                    # outputs are overwritten by the next)
+                    v = v * inc if inc > 1 else v
+                    running[k] = running[k] + v if k in running else v.clone()
+                if inc and n_steps % log_every < inc:
                     log.info("epoch %d step %d: %s", epoch, n_steps, " ".join(
                         f"{k}={float(v):.5f}" for k, v in metrics.items()))
             if trace is not None:
@@ -739,3 +924,42 @@ def install_preemption_handler(trainer: Trainer, signals=None
 def _chain_first(first, rest):
     yield first
     yield from rest
+
+
+def _num_examples(batch: Mapping[str, Any]) -> int:
+    return len(next(iter(batch.values())))
+
+
+def _stack_batches(batches: List[Mapping[str, Any]]) -> Dict[str, np.ndarray]:
+    """Batches of one shape -> {key: [K, B, ...]} (numpy, on the host)."""
+    return {key: np.stack([np.asarray(b[key]) for b in batches])
+            for key in batches[0]}
+
+
+@dataclass
+class _Stack:
+    """K host batches of one shape stacked (fit's unit of `scan_steps`)."""
+    stacked: Dict[str, np.ndarray]
+    rows: int          # examples in each batch
+
+
+def _shape(batch: Mapping[str, Any]):
+    return sorted((k, np.shape(v), str(np.asarray(v).dtype))
+                  for k, v in batch.items())
+
+
+def _chunk_stack(batches: Iterable[Mapping[str, Any]], k: int):
+    """Consecutive batches stacked k at a time (`_Stack`), in the thread
+    that draws them (prefetch's), as the JAX trainer's `_chunk_stack`; a
+    batch that does not share the stack's shape, and the tail of fewer than
+    k, pass as single batches."""
+    buf: List[Mapping[str, Any]] = []
+    for b in batches:
+        if buf and _shape(b) != _shape(buf[0]):
+            yield from buf
+            buf = []
+        buf.append(b)
+        if len(buf) == k:
+            yield _Stack(_stack_batches(buf), _num_examples(buf[0]))
+            buf = []
+    yield from buf

@@ -8,7 +8,8 @@ gradient check, SiameseEncoder's text_recall run with its graft and
 gradient checks, the other matching models, the export and /predict
 serving of Dcn, TabTransformer and Dssm, the quantized and approximate
 searchers, the text encoder's encode and HTTP serving, the text search, the
-CLIs with cli/export and cli/serve --model)."""
+CLIs with cli/export and cli/serve --model, and the dispatch phase's stacks
+of steps, a preemption inside a stack and the served exports)."""
 import json
 import os
 import shutil
@@ -24,7 +25,7 @@ SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
 REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
              "flash_attention", "slice", "train", "ranking", "train_options",
-             "long_runs", "ranking_zoo",
+             "long_runs", "dispatch", "ranking_zoo",
              "attention_ranking", "text_recall", "matching_zoo",
              "export_serve", "sq_search", "ann", "encode", "serve",
              "text_search", "cli")
@@ -140,6 +141,22 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
     assert 1 <= lr["resume"]["preempted_at_step"] <= 4
     assert lr["profile"]["optimizer_steps"] == 3
     assert lr["finetune"]["blocked"].startswith("model promotion blocked")
+    disp = phases["dispatch"]
+    assert disp["dssm_fit"]["bitwise_scan8_vs_scan1"]
+    assert disp["dssm_fit"]["preempted_at_step"] == 11
+    assert disp["dssm_fit"]["resumed_bitwise"]
+    assert sorted(disp["paths"]) == [
+        "dcn/split/dense", "dcn/split/sparse_set",
+        "dcn/split/sparse_set/nondeterministic", "dcn/table_update/dense",
+        "dcn/table_update/sparse", "dssm/auto", "dssm/cosine_warmup",
+        "dssm/lamb_clip1", "siamese_encoder", "tabtransformer"]
+    assert all(p["bitwise"] for k, p in disp["paths"].items()
+               if not k.endswith("nondeterministic"))
+    assert disp["paths"]["dssm/cosine_warmup"]["lrs"][:2] == [0.0, 5e-4]
+    assert sorted(disp["exports"]) == ["Dcn", "Dssm", "TabTransformer"]
+    assert all(x["bitwise"] for x in disp["exports"].values())
+    assert disp["exports"]["Dcn"]["predict_http_bitwise"]
+    assert all(e["bitwise"] for e in disp["eval"].values())
     zoo = phases["ranking_zoo"]["models"]
     assert sorted(zoo) == ["Cold", "DeepFm", "Din", "Escm2-dr", "Escm2-ips",
                            "Esim", "Essm", "Mmoe", "TabTransformer", "XDeepFm"]

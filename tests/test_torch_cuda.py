@@ -1395,8 +1395,10 @@ def test_preempted_and_resumed_run_is_bitwise_on_the_card(cuda, tmp_path,
     saved = install_preemption_handler(t1)
     try:
         a = trainer().fit(ds, epochs=2, verbose=False)["state"]
+        # step by step: a stack of steps (scan_steps=8 on a card) draws
+        # the epoch's 4 batches, and the signal, before its first step
         r = t1.fit(tp.KillAt(ds, 3), epochs=2, preempt_dir=str(tmp_path),
-                   verbose=False)
+                   scan_steps=1, verbose=False)
         assert r["preempted"] and 1 <= r["state"].step <= 4
         t2 = trainer()
         s2 = restore_checkpoint(str(tmp_path), t2.init_state(ds.batches[0]))
@@ -1414,3 +1416,388 @@ def test_preempted_and_resumed_run_is_bitwise_on_the_card(cuda, tmp_path,
     for i, st in ha["optimizer"]["state"].items():
         for k, v in st.items():
             assert torch.equal(v, hb["optimizer"]["state"][i][k]), (i, k)
+
+
+# -------------------------------------------------------------- dispatch
+# Trainer.train_steps on the card replays a CUDA graph of the step
+# (train/graphs.py); under torch's deterministic algorithms (the duplicate
+# sums add in one order) a replayed step computes what the eager step
+# computes, bit for bit, dropout masks included (the generator is reseeded
+# on the host before each replay, which reads its seed and offset).
+_DISPATCH_NETS = {"tower_units": [64, 32]}
+
+
+def _dispatch_options():
+    from recommendflow_tpu_torch.train.trainer import (
+        make_optimizer, make_partitioned_optimizer)
+    n = _DISPATCH_NETS
+    return {
+        "split-dense": (n, dict(table_update="split", split_strategy="dense")),
+        "split-sparse_set": (n, dict(table_update="split",
+                                     split_strategy="sparse_set")),
+        "split-sparse": (n, dict(table_update="split",
+                                 split_strategy="sparse")),
+        "table_update-dense": (n, dict(table_update="dense")),
+        "table_update-sparse": (n, dict(table_update="sparse")),
+        "lamb": (n, dict(optimizer=make_optimizer(1e-3, "lamb",
+                                                  clip_norm=1.0))),
+        "partitioned": (n, dict(optimizer=make_partitioned_optimizer(
+            1e-3, dense_optimizer="adamw", weight_decay=1e-4,
+            clip_norm=1.0))),
+        "schedule": (n, dict(lr_schedule={"type": "cosine",
+                                          "warmup_steps": 2,
+                                          "decay_steps": 6})),
+        "logq": (dict(n, logq_feature="item_id", logq_buckets=1024), {}),
+        "bf16_mlp": (dict(n, compute_dtype="bfloat16"), {})}
+
+
+def _host_state(state):
+    from recommendflow_tpu_torch.train.checkpoint import state_to_host
+    return state_to_host(state)
+
+
+def _bitwise(a, b, path="state"):
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert torch.equal(a, b), (path, float((a.double() - b.double())
+                                               .abs().max()))
+    elif isinstance(a, dict):
+        assert sorted(a, key=str) == sorted(b, key=str), path
+        for k in a:
+            _bitwise(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _bitwise(x, y, f"{path}/{i}")
+    else:
+        assert a == b, path
+
+
+@pytest.fixture
+def deterministic():
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.parametrize("case", list(_dispatch_options()))
+def test_graphed_steps_equal_eager_steps(cuda, deterministic, case):
+    """Dssm on demo_recall (dropout 0.3), 5 steps: train_step five times
+    against train_steps over the same batches (the first eager, the
+    second captured and replayed, three more replays): the whole state
+    bitwise, the metrics the eager steps' mean bitwise."""
+    nets, kw = _dispatch_options()[case]
+    batches = tp.demo_batches(6, seed=90, batch=128).batches
+    ta = tp.demo_trainer(nets, device=cuda, **kw)
+    sa = ta.init_state(batches[0])
+    ms = []
+    for b in batches[1:]:
+        sa, m = ta.train_step(sa, b)
+        ms.append(m)
+    tb = tp.demo_trainer(nets, device=cuda, **kw)
+    sb = tb.init_state(batches[0])
+    sb, mb = tb.train_steps(sb, batches[1:])
+    torch.cuda.synchronize()
+    assert sa.step == sb.step == 5
+    (st,) = tb.graph_stats()["train"]
+    assert st["replays"] == 4 and st["pool_mb"] > 0
+    _bitwise(_host_state(sa), _host_state(sb))
+    for k, v in mb.items():
+        assert torch.equal(v, torch.stack([m[k] for m in ms]).mean(0)), k
+
+
+_ZOO = {
+    "dcn": ("recommendflow_tpu.models.ranking.dcn.Dcn", "demo_ranking.yaml"),
+    "deepfm": ("recommendflow_tpu.models.ranking.deepfm.DeepFm",
+               "demo_ranking.yaml"),
+    "xdeepfm": ("recommendflow_tpu.models.ranking.deepfm.XDeepFm",
+                "demo_ranking.yaml"),
+    "cold": ("recommendflow_tpu.models.preranking.cold.Cold",
+             "demo_ranking.yaml"),
+    "mmoe": ("recommendflow_tpu.models.ranking.mmoe.Mmoe",
+             "demo_ranking.yaml"),
+    "essm": ("recommendflow_tpu.models.ranking.essm.Essm",
+             "demo_ranking.yaml"),
+    "escm2": ("recommendflow_tpu.models.reranking.escm2.Escm2",
+              "demo_ranking.yaml"),
+    "din": ("recommendflow_tpu.models.ranking.din.Din", "demo_din.yaml"),
+    "tabtransformer": ("recommendflow_tpu.models.ranking.tabtransformer."
+                       "TabTransformer", "demo_ranking.yaml"),
+    "esim": ("recommendflow_tpu.models.ranking.esim.Esim",
+             "demo_ranking.yaml"),
+    "mobius": ("recommendflow_tpu.models.matching.mobius.Mobius",
+               "demo_recall.yaml"),
+    "pdm": ("recommendflow_tpu.models.matching.pdm.Pdm", "demo_recall.yaml"),
+    "que2search": ("recommendflow_tpu.models.matching.que2search.Que2Search",
+                   "demo_recall.yaml"),
+    "dssm_encoder": ("recommendflow_tpu.models.matching.dssm_encoder."
+                     "DssmEncoder", "demo_text_recall.yaml"),
+    "siamese_encoder": ("recommendflow_tpu.models.matching.siamese_encoder."
+                        "SiameseEncoder", "demo_text_recall.yaml")}
+
+
+@pytest.mark.parametrize("name", list(_ZOO))
+def test_every_model_trains_and_evaluates_through_graphs(cuda, deterministic,
+                                                         name):
+    """Every model family the port trains, at its demo config's widths with
+    its dropout, in the trainer's default update mode: 4 eager steps against
+    train_steps over the same batches (bitwise), then the eval forward
+    through its graph (Trainer.predict) against the eager forward
+    (bitwise)."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.train.trainer import Trainer, to_device
+    path, conf = _ZOO[name]
+    c = Configuration(f"{tp.ROOT}/conf/{conf}")
+
+    def trainer():
+        m, _ = build_network(path, {"conf": c, "device": cuda, "seed": 3})
+        return Trainer(m, device=cuda, seed=5)
+    batches = [synthetic_batch(trainer().model.schema, 128, seed=20 + i)
+               for i in range(5)]
+    ta, tb = trainer(), trainer()
+    sa, sb = ta.init_state(batches[0]), tb.init_state(batches[0])
+    for b in batches[1:]:
+        sa, _ = ta.train_step(sa, b)
+    sb, _ = tb.train_steps(sb, batches[1:])
+    torch.cuda.synchronize()
+    assert tb.graph_stats()["train"][0]["replays"] == 3
+    _bitwise(_host_state(sa), _host_state(sb))
+    got = tb.predict(sb, batches[:3])
+    tb.model.eval()
+    with torch.no_grad():
+        want = [tb.model(to_device(b, cuda)) for b in batches[:3]]
+    assert tb.graph_stats()["eval"][0]["replays"] == 2
+    for k, v in got.items():
+        np.testing.assert_array_equal(
+            v, torch.cat([w[k] for w in want]).cpu().numpy(), err_msg=k)
+
+
+def test_graphed_steps_launch_counts_and_no_host_wait(cuda):
+    """A replay launches what an eager step launches (the counts added
+    through the replays); replays make the host wait for nothing (CUDA's
+    sync debug mode "error")."""
+    from recommendflow_tpu_torch.ops.cuda import launches
+    batches = tp.demo_batches(6, seed=91, batch=128).batches
+    ta = tp.demo_trainer(_DISPATCH_NETS, device=cuda)
+    sa = ta.init_state(batches[0])
+    sa, _ = ta.train_step(sa, batches[0])
+    before = launches.snapshot()
+    sa, _ = ta.train_step(sa, batches[1])
+    per_step = launches.difference(launches.snapshot(), before)
+    assert launches.total(per_step) > 0
+    tb = tp.demo_trainer(_DISPATCH_NETS, device=cuda)
+    sb = tb.init_state(batches[0])
+    sb, _ = tb.train_steps(sb, batches[:2])           # eager, then captured
+    on_card = [{k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
+               for b in batches[2:]]
+    torch.cuda.synchronize()
+    before = launches.snapshot()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sb, _, n = tb._train_steps_stacked(
+            sb, {k: torch.stack([b[k] for b in on_card]) for k in on_card[0]})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert n == 4 and sb.step == 6
+    got = launches.difference(launches.snapshot(), before)
+    for k, v in per_step.items():
+        want = {kk: 4 * n for kk, n in v.items()} if isinstance(v, dict) \
+            else 4 * v
+        assert got[k] == want, (k, got[k], want)
+
+
+_CAPTURE_FAILS = r"""
+import sys
+sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[1] + "/tests")
+import torch
+import _torch_parity as tp
+from recommendflow_tpu_torch.train.trainer import make_optimizer
+kw = {"optimizer": make_optimizer(1e-3, "lamb")} \
+    if sys.argv[2] == "lamb" else {}
+t = tp.demo_trainer({"tower_units": [64, 32]}, device="cuda", **kw)
+batches = tp.demo_batches(3, seed=92, batch=64).batches
+real = t._device_step
+
+def with_a_host_read(state, batch):
+    out = real(state, batch)
+    out["loss"].item()                 # the host waits: not capturable
+    return out
+
+t._device_step = with_a_host_read
+state = t.init_state(batches[0])
+try:
+    t.train_steps(state, batches)
+    print("no error")
+except RuntimeError as e:
+    print("raised:", e)
+print("step", state.step)
+print("count", getattr(state.optimizer, "count", state.step))
+"""
+
+
+def test_a_capture_that_must_fail_raises(cuda):
+    """A step that reads a value back to the host cannot be captured: the
+    second step (the capture) raises, naming the operation, and nothing
+    falls back to eager (the state stays at the one eager step), and a
+    user optimizer's update count is taken back to the state's step. Under
+    the default Adam and under lamb, each in a process of its own: a failed
+    capture may leave the context unusable."""
+    root = os.path.abspath(tp.ROOT)
+    for optimizer in ("adam", "lamb"):
+        r = subprocess.run([sys.executable, "-c", _CAPTURE_FAILS, root,
+                            optimizer],
+                           capture_output=True, text=True, timeout=300)
+        said = r.stdout + r.stderr
+        assert r.returncode == 0, said
+        assert "raised:" in r.stdout and "no error" not in r.stdout, said
+        assert "capturing a CUDA graph failed at aten._local_scalar_dense" \
+            in r.stdout, said
+        assert "step 1\ncount 1\n" in r.stdout, said
+
+
+_FIRST_LAUNCH_CAPTURED = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from recommendflow_tpu_torch.ops.cuda import _build
+from recommendflow_tpu_torch.ops.cuda import flash_attention as k
+_build.load("flash_attention")        # built and loaded, never launched
+g = torch.Generator(device="cuda").manual_seed(0)
+q, kk, v = (torch.randn((2, 3, 40, 32), generator=g, device="cuda")
+            for _ in range(3))
+mask = torch.rand((2, 40), generator=g, device="cuda") > 0.3
+graph = torch.cuda.CUDAGraph()
+side = torch.cuda.Stream()
+side.wait_stream(torch.cuda.current_stream())
+with torch.cuda.graph(graph, stream=side):
+    out = k.flash_attention(q, kk, v, mask)
+graph.replay()
+torch.cuda.synchronize()
+err = float((out - k.flash_attention_plain(q, kk, v, mask)).abs().max())
+print("err", err)
+"""
+
+
+def test_a_kernels_first_launch_can_be_captured(cuda):
+    """flash_attention's first launch in a process sets its dynamic shared
+    memory limit (cudaFuncSetAttribute, once): legal inside a capture in
+    PyTorch's default (global) mode; the replay agrees with the plain
+    version within 1e-5. In a process of its own, where nothing launched
+    the kernel before."""
+    root = os.path.abspath(tp.ROOT)
+    r = subprocess.run([sys.executable, "-c", _FIRST_LAUNCH_CAPTURED, root],
+                       capture_output=True, text=True, timeout=600)
+    said = r.stdout + r.stderr
+    assert r.returncode == 0, said
+    err = float(r.stdout.split("err")[-1])
+    assert err <= 1e-5, said
+
+
+@pytest.mark.parametrize("first", ["eager", "graphed"])
+def test_checkpoints_resume_bitwise_across_eager_and_graphed(
+        cuda, deterministic, tmp_path, first):
+    """4 steps one way against 2 steps one way, a checkpoint, a fresh
+    trainer restored from it and 2 steps the other way: bitwise. A
+    checkpoint in the port's earlier form (the plain Adam: LR a float, the
+    step on the host) loads into the capturable Adam and trains on; a card
+    checkpoint loads on the CPU."""
+    from recommendflow_tpu_torch.train.checkpoint import (HOST_LR,
+                                                          restore_checkpoint,
+                                                          save_checkpoint)
+    batches = tp.demo_batches(5, seed=93, batch=128).batches
+
+    def run(t, s, bs, graphed):
+        if graphed:
+            return t.train_steps(s, bs)[0]
+        for b in bs:
+            s, _ = t.train_step(s, b)
+        return s
+    t = tp.demo_trainer(_DISPATCH_NETS, device=cuda)
+    whole = run(t, t.init_state(batches[0]), batches[1:], False)
+    t1 = tp.demo_trainer(_DISPATCH_NETS, device=cuda)
+    s1 = run(t1, t1.init_state(batches[0]), batches[1:3], first == "graphed")
+    path = save_checkpoint(str(tmp_path / "2.pt"), s1)
+    t2 = tp.demo_trainer(_DISPATCH_NETS, device=cuda)
+    s2 = restore_checkpoint(path, t2.init_state(batches[0]))
+    s2 = run(t2, s2, batches[3:], first == "eager")
+    torch.cuda.synchronize()
+    _bitwise(_host_state(whole), _host_state(s2))
+    # the earlier form: the plain Adam's groups and host steps
+    saved = torch.load(path, weights_only=True)
+    for g in saved["optimizer"]["param_groups"]:
+        g["lr"] = g.pop(HOST_LR)
+        g["capturable"] = False
+    old = str(tmp_path / "old.pt")
+    torch.save(saved, old)
+    t3 = tp.demo_trainer(_DISPATCH_NETS, device=cuda)
+    s3 = restore_checkpoint(old, t3.init_state(batches[0]))
+    assert all(st["step"].device.type == "cuda"
+               for st in s3.optimizer.state.values())
+    s3 = run(t3, s3, batches[3:], True)
+    torch.cuda.synchronize()
+    _bitwise(_host_state(whole), _host_state(s3))
+    t4 = tp.demo_trainer(_DISPATCH_NETS)                # on the CPU
+    s4 = restore_checkpoint(path, t4.init_state(batches[0]))
+    assert s4.optimizer.param_groups[0]["lr"] == 1e-3
+    s4, m = t4.train_step(s4, batches[3])
+    assert np.isfinite(float(m["loss"]))
+
+
+def test_serving_model_replays_its_graph(cuda, tmp_path):
+    """A demo Dcn export loaded on the card: ServingModel.predict replays
+    the program's graph; bitwise against the program's fx module and the
+    eager model on three batches, with gather_rows' launches counted
+    through the replays (one a batch)."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.export import ServingModel, export_model
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag as kr
+    conf = Configuration(f"{tp.ROOT}/conf/demo_ranking.yaml")
+    model, _ = build_network("dcn", {"conf": conf, "device": cuda,
+                                     "seed": 0})
+    labels = model.schema.label_names
+    batches = [synthetic_batch(model.schema, 64, seed=30 + i)
+               for i in range(3)]
+    serve = [{k: v for k, v in b.items() if k not in labels} for b in batches]
+    consts = {k: np.zeros_like(batches[0][k]) for k in labels}
+    sm = ServingModel.load(export_model(model, serve[0], str(tmp_path / "m"),
+                                        constants=consts), device="cuda")
+    assert sm.graph is not None
+    before = kr.gather_rows.launches
+    got = [sm.predict(b) for b in serve]
+    torch.cuda.synchronize()
+    assert kr.gather_rows.launches - before == 3
+    assert sm.graph.stats()[0]["replays"] == 4     # one when it was built
+    model.eval()
+    for b, g in zip(serve, got):
+        with torch.no_grad():
+            fx = sm._run({k: torch.from_numpy(v).to(cuda)
+                          for k, v in b.items()})
+            eager = model({k: v.to(cuda) for k, v in
+                           tp.to_torch({**b, **consts}).items()})
+        for k, v in g.items():
+            np.testing.assert_array_equal(v, fx[k].cpu().numpy(), err_msg=k)
+            np.testing.assert_array_equal(v, eager[k].cpu().numpy(),
+                                          err_msg=k)
+
+
+def test_a_dropped_trainer_frees_its_graphs(cuda):
+    """A trainer's graph pools go with it: dropping the trainer (and its
+    state) gives the allocator back at least the pools' memory."""
+    import gc
+    batches = tp.demo_batches(3, seed=94, batch=128).batches
+    t = tp.demo_trainer(_DISPATCH_NETS, device=cuda)
+    s = t.init_state(batches[0])
+    s, _ = t.train_steps(s, batches)
+    torch.cuda.synchronize()
+    pool = sum(g["pool_mb"] for g in t.graph_stats()["train"]) * 1e6
+    assert pool > 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    del t, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert held - torch.cuda.memory_reserved() >= pool
