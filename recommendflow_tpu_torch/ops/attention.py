@@ -6,8 +6,10 @@ a key mask ([B, Lk], [B, 1, Lk]) or a full mask whose rank equals q's. With
 no mask or a key mask it goes to `flash_attention` (`ops/cuda/
 flash_attention.py`): the kernel for card tensors, its plain version (the
 vanilla maths: scores at -1e9 where masked, softmax) for CPU tensors. A full
-mask runs the vanilla maths on the CPU and raises on the card, as the JAX
-kernel path does (`recommendflow_tpu/ops/attention.py:32-35`).
+mask (the UniLM mask of SimBERT training, `[B, 1, Lq, Lk]`) runs the vanilla
+maths in plain torch on every device, as the JAX package computes it outside
+its kernel (`recommendflow_tpu/ops/attention.py:53-59`): kernel 6 takes key
+masks only.
 
 Modules carry the flax names of their parameters (`q`, `k`, `v`, `out`,
 `gate`, `key`, `query`), so `interop.py` maps a flax tree onto them. Layers
@@ -33,10 +35,6 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                                  ) -> torch.Tensor:
     """SDPA over rank 3 or 4 inputs (module docstring)."""
     if mask is not None and mask.dim() == q.dim():
-        if q.device.type != "cpu":
-            raise ValueError(
-                "the flash_attention kernel takes key masks only; got a full "
-                f"attention mask of shape {tuple(mask.shape)}")
         logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(k.shape[-1])
         logits = logits.masked_fill(~mask, NEG_INF)
         return torch.matmul(torch.softmax(logits, dim=-1), v)

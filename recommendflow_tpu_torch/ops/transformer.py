@@ -130,12 +130,13 @@ class TextEncoder(nn.Module):
                 seq2seq: bool = False,
                 return_sequence: bool = False) -> torch.Tensor:
         """token_ids [B, L] (0 = pad) -> [B, model_dim] pooled, or the
-        [B, L, model_dim] hidden states with return_sequence=True."""
-        if seq2seq:
-            raise NotImplementedError(
-                "seq2seq (the UniLM full attention mask of SimBERT training) "
-                "comes with the SimBERT slice; the flash_attention kernel "
-                "takes key masks only")
+        [B, L, model_dim] hidden states with return_sequence=True.
+
+        seq2seq=True applies the UniLM mask of SimBERT training, built on
+        the device from the ids: key j is visible to query i iff j is a real
+        token and (j is in segment 0 or j <= i). It reaches SDPA as a full
+        [B, 1, L, L] mask, which runs the vanilla maths (kernel 6 takes key
+        masks only)."""
         length = token_ids.shape[1]
         if length > self.max_len:
             raise ValueError(
@@ -153,9 +154,14 @@ class TextEncoder(nn.Module):
             x = x + sinusoidal_position_encoding(length, self.model_dim,
                                                  x.dtype, x.device)[None]
         x = self.drop(self.emb_ln(x))
+        attn_mask = mask
+        if seq2seq:
+            pos = torch.arange(length, device=token_ids.device)
+            tri = pos[:, None] >= pos[None, :]                # [i, j]: j <= i
+            attn_mask = mask[:, None, :] & ((seg == 0)[:, None, :] | tri[None])
         outputs = []
         for i in range(self.num_layers):
-            x = getattr(self, f"block{i}")(x, mask)
+            x = getattr(self, f"block{i}")(x, attn_mask)
             outputs.append(x)
         out = outputs[self.out_layer]
         if return_sequence:

@@ -2,6 +2,8 @@ from recommendflow_tpu_torch.retrieval.searcher import (
     FlatSearcher, IvfPqSearcher, IvfSearcher, PqSearcher, SqSearcher,
     index_factory, kmeans, resolve_metric,
 )
+from recommendflow_tpu_torch.retrieval.host_tier import (HostIvfSearcher,
+                                                        StreamingSqSearcher)
 from recommendflow_tpu_torch.retrieval.encoder_search import EncoderSearcher
 from recommendflow_tpu_torch.retrieval.whitening import VecsWhitening
 from recommendflow_tpu_torch.retrieval.eval import (

@@ -5,9 +5,13 @@ from __future__ import annotations
 import re
 
 from recommendflow_tpu_torch.retrieval.flat import FlatSearcher
+from recommendflow_tpu_torch.retrieval.host_tier import (HostIvfSearcher,
+                                                        StreamingSqSearcher)
 from recommendflow_tpu_torch.retrieval.ivf import IvfSearcher
 from recommendflow_tpu_torch.retrieval.pq import IvfPqSearcher, PqSearcher
 from recommendflow_tpu_torch.retrieval.sq import SqSearcher
+
+_HOST_QTYPE = {"flat": "f32", "sq8": "sq8", "sqfp16": "bf16", "sqbf16": "bf16"}
 
 
 def index_factory(dim: int, index_param: str = "Flat",
@@ -15,20 +19,34 @@ def index_factory(dim: int, index_param: str = "Flat",
     """'Flat' -> exact FlatSearcher; 'IVF{n},Flat' / 'IVF{n}' -> IvfSearcher
     with n lists; 'PQ{m}' / 'PQ{m}x8' -> PqSearcher with m subspaces;
     'IVF{n},PQ{m}[x8]' -> IvfPqSearcher; 'SQ8' / 'SQfp16' / 'SQbf16' ->
-    SqSearcher (fp16 maps to bf16). Other keyword arguments, `device` among
-    them, go to the searcher.
+    SqSearcher (fp16 maps to bf16). The host-RAM tier: 'HostFlat' /
+    'HostSQ8' / 'HostSQfp16' / 'HostSQbf16' -> StreamingSqSearcher (qtype
+    f32, sq8, bf16, bf16), 'HostIVF{n}[,Flat|SQ8|SQfp16|SQbf16]' ->
+    HostIvfSearcher with n lists (SQ8 by default). Other keyword arguments,
+    `device` among them, go to the searcher.
 
-    The host-RAM tier ('Host*', 'HostIVF*') and the mesh-sharded searchers
-    (`mesh=`) are not ported yet and raise NotImplementedError."""
+    The mesh-sharded searchers (`mesh=`) are not ported yet and raise
+    NotImplementedError; a host-tier string with `mesh=` raises the JAX
+    package's ValueError."""
     spec = (index_param or "Flat").strip()
-    if kwargs.pop("mesh", None) is not None:
+    mesh = kwargs.pop("mesh", None)
+    m = re.match(r"^Host(Flat|SQ8|SQfp16|SQbf16)$", spec, re.IGNORECASE)
+    m_ivf = re.match(r"^HostIVF(\d+)(?:,(Flat|SQ8|SQfp16|SQbf16))?$", spec,
+                     re.IGNORECASE)
+    if (m or m_ivf) and mesh is not None:
+        raise ValueError("the host tier streams from one host — use "
+                         "Sharded* (device-resident) for mesh scaling")
+    if m:
+        return StreamingSqSearcher(dim, metric, qtype=_HOST_QTYPE[
+            m.group(1).lower()], **kwargs)
+    if m_ivf:
+        return HostIvfSearcher(dim, metric, qtype=_HOST_QTYPE[
+            (m_ivf.group(2) or "SQ8").lower()], nlist=int(m_ivf.group(1)),
+            **kwargs)
+    if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded searchers (index_factory(..., mesh=)) come with "
             "the parallel slice of the port")
-    if re.match(r"^Host", spec, re.IGNORECASE):
-        raise NotImplementedError(
-            f"'{spec}': the host-RAM tier (StreamingSqSearcher, "
-            "HostIvfSearcher) comes with the host-tier slice of the port")
     m = re.match(r"^SQ(8|fp16|bf16)$", spec, re.IGNORECASE)
     if m:
         qtype = "sq8" if m.group(1) == "8" else "bf16"
@@ -47,4 +65,5 @@ def index_factory(dim: int, index_param: str = "Flat",
         return FlatSearcher(dim, metric, **kwargs)
     raise ValueError(f"unsupported index_param '{index_param}' "
                      "(supported: Flat, IVF{n}[,Flat], PQ{m}[x8], "
-                     "IVF{n},PQ{m}[x8], SQ8, SQfp16/SQbf16)")
+                     "IVF{n},PQ{m}[x8], SQ8, SQfp16/SQbf16, "
+                     "Host(Flat|SQ8|SQfp16|SQbf16), HostIVF{n}[,...])")

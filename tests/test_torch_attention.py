@@ -160,8 +160,9 @@ def test_multi_head_attention_with_carried_weights(mask_kind):
 
 def test_card_path_shapes_and_full_mask_refusal(monkeypatch):
     """Off the CPU (meta tensors here; no card needed) SDPA hands kernel 6
-    [B, H, L, D] operands and a [B, Lk] key mask, and refuses a full mask as
-    the JAX kernel path does."""
+    [B, H, L, D] operands and a [B, Lk] key mask; a full mask (once refused
+    there) takes the vanilla maths and never reaches kernel 6, as the JAX
+    package computes it outside its kernel."""
     calls = []
 
     def record(q, k, v, mask):
@@ -182,13 +183,14 @@ def test_card_path_shapes_and_full_mask_refusal(monkeypatch):
     assert calls == [((2, 1, 5, 8), (2, 1, 6, 8), (2, 6)),
                      ((2, 3, 5, 8), (2, 3, 6, 8), (2, 6)),
                      ((2, 3, 5, 8), (2, 3, 6, 8), None)]
-    with pytest.raises(ValueError, match="key masks only"):
-        tatt.scaled_dot_product_attention(
-            q4, k4, k4, torch.empty(2, 1, 5, 6, dtype=torch.bool, **meta))
-    # the same refusal from the module, with a [B, Lq, Lk] mask
+    out = tatt.scaled_dot_product_attention(
+        q4, k4, k4, torch.empty(2, 1, 5, 6, dtype=torch.bool, **meta))
+    assert out.shape == (2, 3, 5, 8) and out.device.type == "meta"
+    # the same from the module, with a [B, Lq, Lk] mask
     mha = tatt.MultiHeadAttention(8, 2, device="meta")
-    with pytest.raises(ValueError, match="key masks only"):
-        mha(q3, q3, q3, torch.empty(2, 5, 5, dtype=torch.bool, **meta))
+    out = mha(q3, q3, q3, torch.empty(2, 5, 5, dtype=torch.bool, **meta))
+    assert out.shape == (2, 5, 8) and out.device.type == "meta"
+    assert len(calls) == 3                  # kernel 6 never called again
 
 
 def test_launch_refuses_what_the_kernel_does_not_take():

@@ -5,9 +5,10 @@ training run of the three table-update modes, the ranking runs of Dcn and
 the other ranking models, the training options (the touched-row update, the
 optimizer family, a schedule, logQ, the bf16 MLP), TabTransformer's attention-ranking run with its
 gradient check, SiameseEncoder's text_recall run with its graft and
-gradient checks, the other matching models, the export and /predict
+gradient checks, SimBERT's training on the UniLM mask with its causality
+and gradient checks, the other matching models, the export and /predict
 serving of Dcn, TabTransformer and Dssm, the quantized and approximate
-searchers, the text encoder's encode and HTTP serving, the text search, the
+searchers, the host-RAM tier's streamed and IVF searches, the text encoder's encode and HTTP serving, the text search, the
 CLIs with cli/export and cli/serve --model, and the dispatch phase's stacks
 of steps, a preemption inside a stack and the served exports)."""
 import json
@@ -26,9 +27,9 @@ REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
              "flash_attention", "slice", "train", "ranking", "train_options",
              "long_runs", "dispatch", "ranking_zoo",
-             "attention_ranking", "text_recall", "matching_zoo",
-             "export_serve", "sq_search", "ann", "encode", "serve",
-             "text_search", "cli")
+             "attention_ranking", "text_recall", "simbert", "matching_zoo",
+             "export_serve", "sq_search", "ann", "host_tier", "encode",
+             "serve", "text_search", "cli")
 
 
 def _run(args, cwd):
@@ -236,5 +237,28 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
     assert set(ann["results"]) == {"Flat", "IVF64", "PQ16", "IVF64,PQ16"}
     assert all(0 < r["recall@100_vs_flat"] <= 1 for k, r in ann["results"].items()
                if k != "Flat")
+    sb = phases["simbert"]
+    assert sb["batch"] == [16, 32] and sb["segment1_tokens"] > 0
+    assert sb["causality"]["earlier_bitwise"]
+    assert sb["causality"]["changed_moved"] > 0
+    assert sb["loss_rel_err"] <= sb["loss_tolerance"]
+    _held(sb["grad_check"], control=False)
+    assert sb["loss_curve"][-1] < sb["loss_curve"][0]
+    assert sb["launches"]["flash_attention"] == 0
+    host = phases["host_tier"]
+    assert sorted(host["results"]) == sorted(host["checks"]) == [
+        "HostFlat", "HostSQ8", "HostSQbf16"]
+    assert host["checks"]["HostFlat"]["score_rel_err"] <= host["tolerance"]
+    for spec in ("HostSQ8", "HostSQbf16"):
+        assert host["checks"][spec]["vs_function"]["score_rel_err"] <= \
+            host["tolerance"]
+        assert host["checks"][spec]["vs_resident"]["recall"] > 0.99
+    assert host["checks"]["HostFlat"]["index_match"] > 0.99
+    assert host["results"]["HostSQbf16"]["recall@100_vs_flat"] > 0.95
+    assert host["stream"] == {}                        # timed on the card only
+    ivf = host["host_ivf"]
+    assert ivf["HostSQ8_vs_full_probe"]["recall"] > 0.99
+    assert 0 < ivf["nprobe8"]["recall@100_vs_flat"] <= \
+        ivf["nprobe32"]["recall@100_vs_flat"] <= 1
     assert phases["text_search"]["self_in_top10"] == 1.0
     assert phases["text_search"]["tournament"] is False

@@ -779,9 +779,15 @@ def test_sdpa_on_the_card_launches_the_kernel(cuda):
     ref = attention.scaled_dot_product_attention(q.cpu(), kk.cpu(), v.cpu(),
                                                  mask.cpu())
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)
-    with pytest.raises(ValueError, match="key masks only"):
-        attention.scaled_dot_product_attention(
-            q, kk, v, torch.ones((2, 5, 5), dtype=torch.bool, device=cuda))
+    # a full [B, Lq, Lk] mask (once refused here) takes the vanilla maths on
+    # the card and launches no kernel 6
+    full = torch.rand((2, 5, 5), generator=g, device=cuda) > 0.3
+    full[..., 0] = True
+    got = attention.scaled_dot_product_attention(q, kk, v, full)
+    assert k.flash_attention.launches == before + 1
+    ref = attention.scaled_dot_product_attention(q.cpu(), kk.cpu(), v.cpu(),
+                                                 full.cpu())
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)
 
 
 def test_text_encoder_service_card_matches_cpu(cuda):
@@ -1801,3 +1807,179 @@ def test_a_dropped_trainer_frees_its_graphs(cuda):
     gc.collect()
     torch.cuda.empty_cache()
     assert held - torch.cuda.memory_reserved() >= pool
+
+
+# ------------------------------------------------ SimBERT and the host tier
+def test_full_mask_sdpa_on_the_card_matches_cpu(cuda):
+    """A full [B, 1, Lq, Lk] mask (the UniLM mask) runs the vanilla maths on
+    the card, launches no kernel 6, and agrees with the CPU within 1e-5."""
+    from recommendflow_tpu_torch.ops import attention as tatt
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as kfa
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(4, 3, 20, 16, generator=g) for _ in range(3))
+    mask = torch.rand(4, 1, 20, 20, generator=g) > 0.4
+    mask[..., 0] = True
+    before = kfa.flash_attention.launches
+    got = tatt.scaled_dot_product_attention(q.to(cuda), k.to(cuda),
+                                            v.to(cuda), mask.to(cuda))
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == before and got.device.type == "cuda"
+    ref = tatt.scaled_dot_product_attention(q, k, v, mask)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+def test_simbert_loss_and_gradients_card_match_cpu(cuda):
+    """A small SimBERT batch at dropout 0 on the card and on the CPU: the
+    loss, both parts and every gradient (each leaf within 1e-4 of its
+    largest; the key biases, exact gradient 0, below 1e-5 of the largest
+    gradient); the seq2seq pass launches no kernel 6."""
+    from recommendflow_tpu_torch.encoder import Tokenizer, build_demo_vocab
+    from recommendflow_tpu_torch.encoder.generators import simbert_batches
+    from recommendflow_tpu_torch.encoder.simbert import simbert_loss
+    from recommendflow_tpu_torch.ops.cuda import flash_attention as kfa
+    from recommendflow_tpu_torch.ops.transformer import TextEncoder
+    words = ["red", "blue", "green", "cat", "dog", "bird", "fast", "slow"]
+    vocab = build_demo_vocab(words)
+    pairs = [(f"{a} {b}", f"{b} {a} {c}") for a, b, c in
+             zip(words, words[1:] + words[:1], words[2:] + words[:2])]
+    batch = next(simbert_batches(pairs, Tokenizer(vocab), 16, 12, seed=0))
+    cpu = TextEncoder(len(vocab), num_layers=2, model_dim=64, num_heads=4,
+                      ffn_hidden=128, max_len=24, dropout=0.0,
+                      pos_type="learned", device="cpu", seed=3)
+    card = TextEncoder(len(vocab), num_layers=2, model_dim=64, num_heads=4,
+                       ffn_hidden=128, max_len=24, dropout=0.0,
+                       pos_type="learned", device=cuda, seed=3)
+    card.load_state_dict(cpu.state_dict())
+    before = kfa.flash_attention.launches
+    got, gaux = simbert_loss(card, {k: torch.from_numpy(v).to(cuda)
+                                    for k, v in batch.items()})
+    got.backward()
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == before
+    ref, raux = simbert_loss(cpu, tp.to_torch(batch))
+    ref.backward()
+    assert abs(float(got) - float(ref)) <= 1e-5 * abs(float(ref))
+    for name in ("lm_loss", "sim_loss"):
+        assert abs(float(gaux[name]) - float(raux[name])) <= \
+            1e-5 * abs(float(raux[name]))
+    grads = {n: p.grad for n, p in cpu.named_parameters()}
+    largest = max(float(g.abs().max()) for g in grads.values())
+    for n, p in card.named_parameters():
+        err = float((p.grad.cpu() - grads[n]).abs().max())
+        if n.endswith("mha.k.bias"):
+            assert max(float(p.grad.abs().max()),
+                       float(grads[n].abs().max())) <= 1e-5 * largest, n
+        else:
+            assert err <= 1e-4 * float(grads[n].abs().max()), (n, err)
+
+
+HOST_FORMS = [("HostFlat", "float32"), ("HostSQbf16", "bfloat16"),
+              ("HostSQ8", "uint8")]
+
+
+@pytest.mark.parametrize("spec,form", HOST_FORMS)
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_host_tier_card_matches_cpu(cuda, monkeypatch, spec, form, metric):
+    """Each streamed form on the card against its CPU run: kernel 5's form
+    launched once per block and query block; the same top-k (scores within
+    1e-4, ids up to ties). Every scan is queued behind a 20 ms sleep on the
+    card, so a copy that did not wait for the scan of its buffer's last
+    block would overwrite it and break the agreement."""
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk
+    from recommendflow_tpu_torch.retrieval import host_tier, index_factory
+    real = host_tier.grouped_score_max
+
+    def slow(*a, **k):
+        torch.cuda._sleep(20_000_000)
+        return real(*a, **k)
+
+    monkeypatch.setattr(host_tier, "grouped_score_max", slow)
+    rng = np.random.RandomState(7)
+    vecs = rng.randn(40000, 96).astype(np.float32)
+    qs = rng.randn(70, 96).astype(np.float32)
+    kw = dict(block_items=8192, query_block=32)
+    gpu = index_factory(96, spec, metric, device=cuda, **kw).train(vecs)
+    cpu = index_factory(96, spec, metric, device="cpu", **kw).train(vecs)
+    assert gpu._codes.is_pinned() and not cpu._codes.is_pinned()
+    assert torch.equal(gpu._codes, cpu._codes)
+    before = grouped_topk.grouped_score_max.launches_by_dtype[form]
+    got = gpu.search(qs, 20, return_items=False)
+    assert grouped_topk.grouped_score_max.launches_by_dtype[form] == \
+        before + 5 * 3
+    tp.agree(cpu.search(qs, 20, return_items=False), got, 1e-4)
+
+
+@pytest.mark.parametrize("qtype", ["sq8", "bf16", "f32"])
+def test_host_ivf_card_matches_cpu(cuda, tmp_path, qtype):
+    """HostIvf with the CPU's trained layout carried over in its `.npz`: the
+    union scorer launches kernel 5 once per query block, and the card's
+    top-k equals the CPU's; a HostIvf built on the card holds the same
+    codes and a probe recall above 0.9."""
+    from recommendflow_tpu_torch.ops.cuda import grouped_topk
+    from recommendflow_tpu_torch.retrieval import HostIvfSearcher
+    rng = np.random.RandomState(8)
+    centers = rng.randn(64, 32).astype(np.float32)
+    vecs = centers[rng.randint(0, 64, 30000)] + \
+        0.1 * rng.randn(30000, 32).astype(np.float32)
+    qs = vecs[:48] + 0.02 * rng.randn(48, 32).astype(np.float32)
+    kw = dict(qtype=qtype, nlist=64, nprobe=32, train_sample=8000,
+              query_block=16)
+    cpu = HostIvfSearcher(32, "ip", device="cpu", **kw).train(vecs)
+    cpu.save(str(tmp_path / "ivf.npz"))
+    gpu = HostIvfSearcher.load(str(tmp_path / "ivf.npz"), device=cuda)
+    before = grouped_topk.grouped_score_max.launches
+    got = gpu.search(qs, 10, return_items=False)
+    assert grouped_topk.grouped_score_max.launches == before + 3
+    tp.agree(cpu.search(qs, 10, return_items=False), got, 1e-4)
+    built = HostIvfSearcher(32, "ip", device=cuda, **kw).train(vecs)
+    np.testing.assert_array_equal(built.reconstruct(np.arange(100)),
+                                  cpu.reconstruct(np.arange(100)))
+    _, idx = built.search(qs, 10, return_items=False)
+    golden = np.argsort(-(qs @ vecs.T), axis=1)[:, :10]
+    assert np.mean([len(set(a) & set(b)) / 10
+                    for a, b in zip(idx, golden)]) > 0.9
+
+
+def test_host_tier_streams_within_its_memory_bound(cuda):
+    """A streamed f32 search holds two block buffers, one block's group
+    maxima and the tournament's gathered rows on the card, not the corpus:
+    its peak stays below that bound and far below the 1 GB corpus."""
+    from recommendflow_tpu_torch.retrieval import StreamingSqSearcher
+    n, d, bn, nq, k = 1 << 22, 64, 1 << 18, 256, 10
+    vecs = np.random.RandomState(9).randn(n, d).astype(np.float32)
+    s = StreamingSqSearcher(d, "ip", qtype="f32", block_items=bn,
+                            query_block=nq, device=cuda).train(vecs)
+    qs = vecs[:nq] + 0.01
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, idx = s.search(qs, k, return_items=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    bound = 2 * bn * d * 4 + nq * (bn // 16) * 4 + nq * k * 16 * d * 4 \
+        + (32 << 20)
+    assert peak < bound < n * d * 4 // 4, (peak, bound)
+    assert (idx[:, 0] == np.arange(nq)).all()
+
+
+def test_host_tier_stream_waits_for_work_queued_before_it(cuda):
+    """The stream's block buffers may take the memory of a tensor freed
+    while queued work still reads it: the side stream's first copies must
+    wait for that work (a sum queued behind a 0.2 s spin reads zeros, not
+    the first block). Without the wait, a HostIvf build streamed its blocks
+    over the k-means sample still being read, and its recall swung between
+    runs."""
+    from recommendflow_tpu_torch.retrieval import StreamingSqSearcher
+    bn, d = 1 << 16, 64
+    vecs = np.random.RandomState(10).rand(3 * bn, d).astype(np.float32) + 1
+    s = StreamingSqSearcher(d, "ip", qtype="f32", block_items=bn,
+                            device=cuda).train(vecs)
+    for _ in range(3):
+        x = torch.zeros((bn, d), device=cuda)
+        torch.cuda._sleep(400_000_000)
+        y = x.sum()
+        del x
+        for _, _, codes, _ in s._stream():
+            pass
+        assert float(y) == 0.0

@@ -2,8 +2,9 @@
 against the JAX package's on the CPU.
 
 * Every index string resolves to the port's counterpart of the class the
-  JAX factory builds, with the same parameters; the host-tier strings and
-  `mesh=` raise NotImplementedError.
+  JAX factory builds, with the same parameters, the host-tier strings
+  among them; `mesh=` raises NotImplementedError (ValueError on a
+  host-tier string, as in JAX).
 * EncoderSearcher in DataFrame mode, with the port's TextEncoderService and
   the JAX one sharing weights through `interop` (the service parity of
   tests/test_torch_encoder_service.py): the same joined frame, sims within
@@ -47,9 +48,21 @@ def test_strings_resolve_as_in_jax(spec, kw):
 
 
 def test_unported_strings_and_mesh_raise():
-    for spec in ("HostSQ8", "HostFlat", "HostIVF1024", "HostIVF64,SQbf16"):
-        with pytest.raises(NotImplementedError, match="host-tier"):
-            index_factory(16, spec, device="cpu")
+    """The host-tier strings (once refused) build the JAX factory's classes
+    with its attributes, and raise its ValueError with mesh=; mesh= on the
+    other strings and unsupported strings still raise."""
+    for spec in ("HostSQ8", "HostFlat", "HostSQfp16", "hostsqbf16",
+                 "HostIVF1024", "HostIVF64,SQbf16", "HostIVF32,Flat",
+                 "HostIVF16,SQ8"):
+        j = jax_factory(16, spec, "l2")
+        t = index_factory(16, spec, "l2", device="cpu")
+        assert type(t).__name__ == type(j).__name__, spec
+        for attr in ("dim", "metric", "qtype", "block_items", "query_block",
+                     "nlist", "nprobe", "train_sample", "kmeans_iters",
+                     "seed"):
+            assert getattr(t, attr, None) == getattr(j, attr, None), attr
+        with pytest.raises(ValueError, match="host tier streams"):
+            index_factory(16, spec, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="parallel"):
         index_factory(16, "Flat", mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unsupported"):

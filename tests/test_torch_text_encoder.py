@@ -94,11 +94,20 @@ def test_variables_round_trip_through_the_state_dict():
 
 
 def test_max_len_and_seq2seq_refused():
+    """Past max_len and an unknown pooling raise; seq2seq=True (the UniLM
+    mask, once refused) gives flax's seq2seq hidden states and pooled
+    vectors."""
     tm = TextEncoder(**SIZES, device="cpu")
     with pytest.raises(ValueError, match="exceeds the encoder's configured"):
         tm(torch.ones((2, SIZES["max_len"] + 1), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="SimBERT slice"):
-        tm(torch.ones((2, 4), dtype=torch.int32), seq2seq=True)
+    jm, v, tp_ = _pair(pos_type="learned")
+    ids, seg = _inputs(seed=3)
+    for call in (dict(return_sequence=True), {}):
+        got, ref = _both(jm, v, tp_, ids, seg, seq2seq=True, **call)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+    plain, _ = _both(jm, v, tp_, ids, seg, return_sequence=True)
+    assert np.abs(plain - _both(jm, v, tp_, ids, seg, seq2seq=True,
+                                return_sequence=True)[0]).max() > 1e-3
     with pytest.raises(ValueError, match="unknown pooling"):
         TextEncoder(**SIZES, pooling="first", device="cpu")
 
