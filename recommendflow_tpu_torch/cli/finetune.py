@@ -19,8 +19,11 @@ the promoted state is written as `<model_save_root>/online/<step>.pt`, the
 only checkpoint there, which cli/predict and cli/evaluate take as
 --checkpoint `<model_save_root>/online`. --train_mode test never promotes.
 
-The JAX CLI's make_mesh, init_distributed and enable_compilation_cache have
-no counterpart here: the port trains on one card and compiles no XLA.
+Under torchrun (one process per card) the CLI joins the process group and
+fine-tunes on a mesh over every rank, as the JAX CLI does with its
+make_mesh; a plain single process keeps the path without a group. The
+JAX CLI's enable_compilation_cache has no counterpart: the port compiles
+no XLA.
 """
 from __future__ import annotations
 
@@ -57,13 +60,16 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def promote(root: str, state) -> str:
     """Write `state` as `<root>/online/<step>.pt` and remove any other
-    checkpoint there, so the directory names this one. Returns its path."""
+    checkpoint there, so the directory names this one (rank 0 writes under
+    a mesh). Returns its path."""
+    from recommendflow_tpu_torch.parallel import host_id
     from recommendflow_tpu_torch.train.checkpoint import save_step
     online = os.path.join(root, "online")
     path = save_step(online, state, state.step)
-    for name in os.listdir(online):
-        if name.endswith(".pt") and name != os.path.basename(path):
-            os.remove(os.path.join(online, name))
+    if host_id() == 0:
+        for name in os.listdir(online):
+            if name.endswith(".pt") and name != os.path.basename(path):
+                os.remove(os.path.join(online, name))
     return path
 
 
@@ -73,8 +79,9 @@ def main(argv=None):
 
     from recommendflow_tpu_torch.config import Configuration
     from recommendflow_tpu_torch.data.pipeline import make_dataset
-    from recommendflow_tpu_torch.device import resolve_device
     from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.parallel import host_id, num_hosts
+    from recommendflow_tpu_torch.parallel.mesh import launch_mesh
     from recommendflow_tpu_torch.retrieval.eval import make_recall_evaluator
     from recommendflow_tpu_torch.train.callbacks import (EvalCallback,
                                                          ModelCheckpoint)
@@ -83,7 +90,7 @@ def main(argv=None):
     from recommendflow_tpu_torch.train.trainer import (Trainer,
                                                        set_learning_rate)
 
-    dev = resolve_device(args.device)
+    mesh, dev = launch_mesh(args.device)
     conf = Configuration(args.conf)
     loss_name = None
     if args.exp_id is not None:
@@ -93,11 +100,14 @@ def main(argv=None):
     debug = str2debug(args.train_mode)
     train_ds, valid_ds = make_dataset(conf, args.data, batch_size,
                                       dayno=args.dayno, valid_ratio=0.1,
-                                      seed=args.seed, debug=debug)
+                                      seed=args.seed, debug=debug,
+                                      host_id=host_id(),
+                                      num_hosts=num_hosts())
     model, _ = build_network(conf.networks["class"],
                              {"conf": conf, "loss": loss_name, "device": dev,
                               "seed": args.seed})
-    trainer = Trainer(model, learning_rate=args.lr, device=dev, seed=args.seed)
+    trainer = Trainer(model, learning_rate=args.lr, device=dev, seed=args.seed,
+                      mesh=mesh)
 
     state = trainer.init_state(next(iter(train_ds)))
     restore_checkpoint(args.load_checkpoint, state)

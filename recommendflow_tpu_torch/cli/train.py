@@ -16,9 +16,19 @@ ReduceLROnPlateau is left out while it is active.
 --preempt_dir (default `<model_save_root>/preempt` when a save root is
 known) installs the preemption handler: SIGTERM or SIGINT ends the run
 after the step in flight with `<preempt_dir>/<step>.pt`, which
---load_checkpoint resumes mid-epoch. --shard_tables needs the parallel
-slice and raises; --no_mesh is accepted and changes nothing (one card, no
-mesh).
+--load_checkpoint resumes mid-epoch.
+
+Several processes, one per card, under torchrun: the CLI joins the process
+group and trains on a mesh over every rank (`parallel.make_mesh`), each
+rank reading its share of the record files; --shard_tables row-shards the
+large tables over it, --no_mesh trains each process on its own share, as
+in the JAX CLI:
+
+    torchrun --nproc_per_node 4 -m recommendflow_tpu_torch.cli.train \
+        conf/bench_recall.yaml --data 'records/*.rfb' --shard_tables
+
+A plain single process keeps the path without a process group; with
+--shard_tables it joins a group of one.
 """
 from __future__ import annotations
 
@@ -56,12 +66,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--monitor", default="val_auc")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no_mesh", action="store_true",
-                   help="accepted; the port trains on one card without a mesh")
+                   help="under torchrun, train each process on its own "
+                        "(no mesh)")
     p.add_argument("--preempt_dir", default=None,
                    help="checkpoint dir for graceful SIGTERM/SIGINT "
                         "preemption (default: <model_save_root>/preempt)")
     p.add_argument("--shard_tables", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1: parallel)")
+                   help="row-shard the large embedding tables over the mesh")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -69,14 +80,12 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     print_args(args)
-    if args.shard_tables:
-        raise NotImplementedError("--shard_tables is not ported yet (ROADMAP "
-                                  "Queue 1: parallel, row-sharded tables)")
 
     from recommendflow_tpu_torch.config import Configuration
     from recommendflow_tpu_torch.data.pipeline import make_dataset
-    from recommendflow_tpu_torch.device import resolve_device
     from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.parallel import host_id, num_hosts
+    from recommendflow_tpu_torch.parallel.mesh import launch_mesh
     from recommendflow_tpu_torch.retrieval.eval import make_recall_evaluator
     from recommendflow_tpu_torch.train.callbacks import (EarlyStopping,
                                                          EvalCallback,
@@ -87,7 +96,7 @@ def main(argv=None):
     from recommendflow_tpu_torch.train.trainer import (
         Trainer, install_preemption_handler)
 
-    dev = resolve_device(args.device)
+    mesh, dev = launch_mesh(args.device, args.no_mesh, args.shard_tables)
     conf = Configuration(args.conf)
     loss_name = None
     data_pattern = args.data
@@ -103,7 +112,8 @@ def main(argv=None):
     debug = str2debug(args.train_mode)
     train_ds, valid_ds = make_dataset(
         conf, data_pattern, batch_size, dayno=args.dayno,
-        valid_ratio=args.valid_ratio, seed=args.seed, debug=debug)
+        valid_ratio=args.valid_ratio, seed=args.seed, debug=debug,
+        host_id=host_id(), num_hosts=num_hosts())
 
     model, _ = build_network(conf.networks["class"],
                              {"conf": conf, "loss": loss_name, "device": dev,
@@ -112,7 +122,8 @@ def main(argv=None):
                  "decay_steps": args.decay_steps}
                 if args.lr_schedule else None)
     trainer = Trainer(model, learning_rate=args.lr, lr_schedule=schedule,
-                      device=dev, seed=args.seed)
+                      device=dev, seed=args.seed, mesh=mesh,
+                      shard_tables=args.shard_tables)
 
     topk = str2list(args.topk, trans_type=int)
     monitor = args.monitor

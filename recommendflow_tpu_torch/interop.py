@@ -64,6 +64,13 @@ tables on the dense path, and the dense leaves' Adam moments):
 `load_train_state` copies it into a port TrainState (train/trainer.py),
 `train_state_tree` reads one back out.
 
+A row-sharded table or expert block (parallel/sharded_embedding.py)
+crosses whole: loading copies this rank's block of the tree's leaf (and of
+its accumulator or Adam moments) into the rank's shard, so every package
+and world size starts from the same weights, and `train_state_tree`
+gathers the blocks back into whole arrays (a collective every rank
+calls).
+
 An Mmoe tree written before the JAX package batched its experts (one
 `expert{i}` subtree per expert) is brought to the stacked layout by
 `models/ranking/mmoe.py:migrate_legacy_params` as it is loaded.
@@ -75,7 +82,10 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from recommendflow_tpu_torch.train.checkpoint import assign_param_state
+from recommendflow_tpu_torch.parallel.sharded_embedding import (
+    full_rows, gather_like, own_rows)
+from recommendflow_tpu_torch.train.checkpoint import (_acc_tables,
+                                                      assign_param_state)
 
 Tree = Dict[str, Any]
 
@@ -211,7 +221,9 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]
     migrate = getattr(model, "migrate_legacy_params", None)
     if migrate is not None and "params" in variables:
         variables = {**variables, "params": migrate(variables["params"])}
-    state = variables_from_jax(variables)
+    params = dict(model.named_parameters())
+    state = {k: own_rows(params[k], t) if k in params else t
+             for k, t in variables_from_jax(variables).items()}
     own = model.state_dict()
     missing = [k for k in own if k not in state]
     unexpected = [k for k in state if k not in own]
@@ -265,9 +277,11 @@ def load_train_state(state, tree: Mapping[str, Any]):
     if sorted(accs) != sorted(state.table_acc):
         raise KeyError(f"table_acc {sorted(accs)} does not match the state's "
                        f"{sorted(state.table_acc)}")
+    tables = _acc_tables(state.model)
     with torch.no_grad():
         for k, v in accs.items():
-            state.table_acc[k].copy_(to_tensor(v))
+            state.table_acc[k].copy_(own_rows(tables[k], to_tensor(v))
+                                     if k in tables else to_tensor(v))
     opt = tree["opt"]
     mu = variables_from_jax({"params": opt["mu"]})
     nu = variables_from_jax({"params": opt["nu"]})
@@ -280,7 +294,8 @@ def load_train_state(state, tree: Mapping[str, Any]):
     for name, p in dense.items():
         assign_param_state(state.optimizer, group[id(p)], p, {
             "step": torch.tensor(float(opt["count"])),
-            "exp_avg": mu[name], "exp_avg_sq": nu[name]})
+            "exp_avg": own_rows(p, mu[name]),
+            "exp_avg_sq": own_rows(p, nu[name])})
     state.step = int(tree["step"])
     return state
 
@@ -288,15 +303,21 @@ def load_train_state(state, tree: Mapping[str, Any]):
 def train_state_tree(state, bf16_dtype=None) -> Tree:
     """A port TrainState as a training-state tree of numpy arrays (module
     docstring); `bf16_dtype` as in to_numpy."""
-    tree = jax_from_variables(state.model.state_dict(), bf16_dtype)
-    tree["table_acc"] = {k: to_numpy(v) for k, v in state.table_acc.items()}
+    params = dict(state.model.named_parameters())
+    tree = jax_from_variables({k: full_rows(params[k]) if k in params else t
+                               for k, t in state.model.state_dict().items()},
+                              bf16_dtype)
+    tables = _acc_tables(state.model)
+    tree["table_acc"] = {k: to_numpy(gather_like(tables.get(k), v))
+                         for k, v in state.table_acc.items()}
     dense = _dense_params(state)
     moments, count = {"exp_avg": {}, "exp_avg_sq": {}}, 0
     for name, p in dense.items():
         st = state.optimizer.state.get(p, {})
         count = int(st["step"]) if "step" in st else 0
         for key in moments:
-            moments[key][name] = st.get(key, torch.zeros_like(p))
+            moments[key][name] = gather_like(p, st.get(key,
+                                                       torch.zeros_like(p)))
     tree["opt"] = {"mu": jax_from_variables(moments["exp_avg"])["params"],
                    "nu": jax_from_variables(moments["exp_avg_sq"])["params"],
                    "count": count}

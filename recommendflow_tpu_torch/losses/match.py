@@ -3,29 +3,62 @@ counterpart of `recommendflow_tpu/losses/match.py`).
 
 Contract `loss(y_true, query, doc) -> scalar`: query/doc are L2-normalized
 tower embeddings [B, D], y_true is [B]. The negatives of a query are the
-other docs of its batch, on one card: an `axis_name` (the JAX package's
-data-parallel gather of the global batch) raises NotImplementedError until
-the parallel slice.
+other docs of its batch.
+
+Data parallel: every in-batch loss takes `axis_name`, an axis of the
+current mesh (parallel/mesh.py) over which each rank holds its own rows of
+a global batch. The docs (and a logQ correction's log-probabilities) are
+all-gathered over that axis's process group, so the negative pool is the
+GLOBAL batch, and each rank's positives sit at rank * B + arange(B). The
+value every rank returns is the global batch's loss (a mean over the axis
+of the per-rank means, or a sum of sums). Gradients flow back through the
+all-gather (parallel/distributed.py): each rank's gradient of its inputs is
+the axis size times its share of the global loss's gradient.
 
 Numerics: logsumexp-based forms throughout; masked entries take -1e9.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import inspect
+from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from recommendflow_tpu_torch.parallel.distributed import (all_gather,
+                                                          all_reduce_nograd,
+                                                          all_reduce_sum)
+from recommendflow_tpu_torch.parallel.mesh import axis_group
 
 MASK = -1e9
 
 
 def _gather_negatives(query, doc, axis_name: Optional[str]):
-    """(doc_all [B, D], pos_idx [B]) for the batch on this card."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (in-batch negatives gathered across cards) arrives "
-            "with the parallel slice (ROADMAP Queue 1: parallel)")
-    return doc, torch.arange(query.shape[0], device=query.device)
+    """(doc_all [Bg, D], pos_idx [B]) for the global batch. Labels are not
+    gathered: every loss weights by its own rows' y_true."""
+    b = query.shape[0]
+    pos = torch.arange(b, device=query.device)
+    if axis_name is None:
+        return doc, pos
+    group, rank, _ = axis_group(axis_name)
+    return all_gather(doc, group), rank * b + pos
+
+
+def _mean_over_axis(value, axis_name: Optional[str]):
+    """pmean: the mean of every rank's value."""
+    if axis_name is None:
+        return value
+    group, _, n = axis_group(axis_name)
+    return all_reduce_sum(value, group) / n
+
+
+def _sum_over_axis(value, axis_name: Optional[str]):
+    """psum: the sum of every rank's value."""
+    if axis_name is None:
+        return value
+    return all_reduce_sum(value, axis_group(axis_name)[0])
 
 
 def _pick(x, pos):
@@ -118,37 +151,46 @@ def batch_neg_sample_ce_loss(y_true, query, doc,
     y_true (scores as logits)."""
     doc_all, pos = _gather_negatives(query, doc, axis_name)
     logp = torch.log_softmax(query @ doc_all.T, dim=-1)
-    return torch.mean(-_pick(logp, pos) * y_true)
+    return _mean_over_axis(torch.mean(-_pick(logp, pos) * y_true), axis_name)
 
 
-def _column_lse(logits):
-    """logsumexp over the query axis of [B, Bg] logits -> [Bg]."""
+def _column_lse(logits, axis_name: Optional[str] = None):
+    """logsumexp over the (global) query axis of [B, Bg] logits -> [Bg].
+    Under data parallelism each rank holds its own B query rows: the
+    doc->query denominator is assembled with an all-reduce max (the
+    stabiliser, no gradient) and an all-reduce sum."""
     col_max = torch.amax(logits, dim=0)
+    if axis_name is not None:
+        col_max = all_reduce_nograd(col_max, axis_group(axis_name)[0],
+                                    op=dist.ReduceOp.MAX)
     sums = torch.sum(torch.exp(logits - col_max[None, :]), dim=0)
+    sums = _sum_over_axis(sums, axis_name)
     return col_max + torch.log(sums)
 
 
-def _symmetric(logits, pos, y_true):
+def _symmetric(logits, pos, y_true, axis_name: Optional[str] = None):
     lp_q = torch.log_softmax(logits, dim=-1)
     picked_q = _pick(lp_q, pos)
-    picked_d = _pick(logits, pos) - _column_lse(logits)[pos]
-    return torch.mean(-0.5 * (picked_q + picked_d) * y_true)
+    picked_d = _pick(logits, pos) - _column_lse(logits, axis_name)[pos]
+    return _mean_over_axis(torch.mean(-0.5 * (picked_q + picked_d) * y_true),
+                           axis_name)
 
 
 def batch_neg_sample_symmetrical_ce_loss(y_true, query, doc,
                                          axis_name: Optional[str] = None):
     """Symmetric (query->doc and doc->query) in-batch CE."""
     doc_all, pos = _gather_negatives(query, doc, axis_name)
-    return _symmetric(query @ doc_all.T, pos, y_true)
+    return _symmetric(query @ doc_all.T, pos, y_true, axis_name)
 
 
 def _logq_correct(logits, logq, axis_name: Optional[str]):
     """Sampled-softmax bias correction: subtract each column's doc
-    log-probability (logq [B]) from its logits."""
+    log-probability from its logits. logq [B] is this rank's docs'; under
+    data parallelism it is all-gathered to the global column axis."""
     if logq is None:
         return logits
     if axis_name is not None:
-        raise NotImplementedError("axis_name arrives with the parallel slice")
+        logq = all_gather(logq, axis_group(axis_name)[0])
     return logits - logq[None, :]
 
 
@@ -161,7 +203,7 @@ def batch_neg_sample_scaled_multi_class_ce_loss(y_true, query, doc,
     doc_all, pos = _gather_negatives(query, doc, axis_name)
     logits = _logq_correct(scale * (query @ doc_all.T), logq, axis_name)
     logp = torch.log_softmax(logits, dim=-1)
-    return torch.mean(-_pick(logp, pos) * y_true)
+    return _mean_over_axis(torch.mean(-_pick(logp, pos) * y_true), axis_name)
 
 
 def batch_neg_sample_symmetrical_scaled_multi_class_ce_loss(
@@ -170,7 +212,7 @@ def batch_neg_sample_symmetrical_scaled_multi_class_ce_loss(
     """Symmetric Que2Search loss (the stated formula, scaled once)."""
     doc_all, pos = _gather_negatives(query, doc, axis_name)
     logits = _logq_correct(scale * (query @ doc_all.T), logq, axis_name)
-    return _symmetric(logits, pos, y_true)
+    return _symmetric(logits, pos, y_true, axis_name)
 
 
 def batch_neg_sample_margin_rank_loss(y_true, query, doc, margin: float = 0.1,
@@ -183,7 +225,7 @@ def batch_neg_sample_margin_rank_loss(y_true, query, doc, margin: float = 0.1,
     pos_score = scores.gather(1, pos[:, None])
     viol = torch.clamp(-(pos_score - scores) + margin, min=0.0)
     viol = viol * (1.0 - F.one_hot(pos, scores.shape[1]).to(viol.dtype))
-    return torch.sum(viol * y_true[:, None])
+    return _sum_over_axis(torch.sum(viol * y_true[:, None]), axis_name)
 
 
 def batch_hard_neg_sample_margin_rank_loss(y_true, query, doc,
@@ -195,8 +237,9 @@ def batch_hard_neg_sample_margin_rank_loss(y_true, query, doc,
     pos_score = _pick(scores, pos)
     is_pos_col = F.one_hot(pos, scores.shape[1]).bool()
     hard_neg = torch.amax(torch.where(is_pos_col, MASK, scores), dim=-1)
-    return torch.sum(torch.clamp(-(pos_score - hard_neg) + margin, min=0.0)
-                     * y_true)
+    return _sum_over_axis(torch.sum(
+        torch.clamp(-(pos_score - hard_neg) + margin, min=0.0) * y_true),
+        axis_name)
 
 
 def batch_softmax_probabilistic_combining_soft(batch_size: int,
@@ -215,7 +258,8 @@ def batch_softmax_probabilistic_combining_soft(batch_size: int,
         num = torch.where(is_pos_col | pseudo_ok, scores, MASK)
         log_num = torch.logsumexp(num, dim=-1)
         log_den = torch.logsumexp(scores, dim=-1)
-        return torch.mean(-(log_num - log_den) * y_true)
+        return _mean_over_axis(torch.mean(-(log_num - log_den) * y_true),
+                               axis_name)
 
     return loss_fn
 
@@ -248,3 +292,22 @@ zipped_batch_neg_sample_scaled_multi_class_ce_loss = _zipped(
     batch_neg_sample_scaled_multi_class_ce_loss)
 zipped_batch_neg_sample_margin_rank_loss = _zipped(
     batch_neg_sample_margin_rank_loss)
+
+
+def global_batch_loss(loss_fn: Callable, axis_name: str) -> Callable:
+    """`loss_fn` as the global batch sees it, called by a rank that holds
+    its own rows of that batch on `axis_name`: an in-batch loss (one with
+    an `axis_name` parameter) takes its axis path; any other loss
+    (pointwise, CoSENT, a zipped adapter) gets every tensor argument
+    all-gathered, so that every rank computes the global batch's value."""
+    if "axis_name" in inspect.signature(loss_fn).parameters:
+        return functools.partial(loss_fn, axis_name=axis_name)
+
+    def gathered(*args, **kwargs):
+        group = axis_group(axis_name)[0]
+
+        def g(x):
+            return all_gather(x, group) \
+                if isinstance(x, torch.Tensor) and x.dim() >= 1 else x
+        return loss_fn(*map(g, args), **{k: g(v) for k, v in kwargs.items()})
+    return gathered

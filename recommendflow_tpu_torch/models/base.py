@@ -23,11 +23,14 @@ from torch import nn
 
 from recommendflow_tpu_torch.config.configuration import Configuration
 from recommendflow_tpu_torch.data.schema import BatchSchema, compile_schema
+from recommendflow_tpu_torch.losses.match import global_batch_loss
 from recommendflow_tpu_torch.ops.embedding import (IMAGE_PATCH, _global_ids,
                                                    concat_tower, embed_batch,
                                                    gather_group,
                                                    init_group_table)
 from recommendflow_tpu_torch.ops.mlp import ExpertsDense
+from recommendflow_tpu_torch.parallel.distributed import all_gather_nograd
+from recommendflow_tpu_torch.parallel.mesh import active_data_parallel
 from recommendflow_tpu_torch.train.freq import freq_init, freq_update, log_q
 from recommendflow_tpu_torch.utils.str_parser import str2fn
 
@@ -181,13 +184,18 @@ class RecModel(nn.Module):
 
     def resolve_loss(self) -> Callable:
         """The loss callable (resolved once: the training forward calls this
-        every step)."""
+        every step). Inside a `parallel.mesh.data_parallel` block, where
+        each rank holds its own rows of the batch, the loss as the global
+        batch sees it (`losses.match.global_batch_loss`)."""
         if getattr(self, "_loss_fn", None) is None:
             loss = self.loss if self.loss is not None \
                 else self.conf.networks.get("loss")
             if loss is None:
                 raise ValueError("no loss given (model arg or Networks.loss)")
             self._loss_fn = str2fn(loss) if isinstance(loss, str) else loss
+        dp = active_data_parallel()
+        if dp is not None:
+            return global_batch_loss(self._loss_fn, dp[1])
         return self._loss_fn
 
     def init_logq(self, device=None) -> None:
@@ -215,6 +223,11 @@ class RecModel(nn.Module):
         lq = log_q(self.freq.state(), ids)
         if self.training:
             alpha = float(self.network_conf("logq_alpha") or 0.05)
+            dp = active_data_parallel()
+            if dp is not None:
+                # the stream advances by the global batch's ids, in order,
+                # on every rank
+                ids = all_gather_nograd(ids, dp[0].group(dp[1]))
             with torch.no_grad():
                 self.freq.step.add_(1)
                 freq_update(self.freq.state(), ids, self.freq.step,

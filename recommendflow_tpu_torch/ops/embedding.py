@@ -32,6 +32,7 @@ counterpart of `recommendflow_tpu/ops/embedding.py`).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -138,6 +139,33 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return _TakeRows.apply(table, ids)
 
 
+def init_tables(schema: BatchSchema, generator: torch.Generator,
+                dtype: Optional[DType] = None, scale: float = 0.05,
+                device: Union[str, torch.device] = "cuda"
+                ) -> Dict[str, torch.Tensor]:
+    """One packed stacked table per dim group ('dim{d}') and a patch
+    projection [192, dim] per image slot ('img_{name}', lecun_normal), drawn
+    in that order from `generator` (which lives on `device`). dtype
+    defaults to the schema's `table_dtype`: the stored shape depends on it
+    (the pack factor)."""
+    if dtype is None:
+        dtype = getattr(schema, "table_dtype", "float32")
+    params: Dict[str, torch.Tensor] = {}
+    for dim, group in schema.groups.items():
+        params[f"dim{dim}"] = init_group_table(generator, group, dtype, scale,
+                                               device=device)
+    for name in schema.order:
+        slot = schema.slots[name]
+        if slot.kind == "image":
+            fan_in = IMAGE_PATCH * IMAGE_PATCH * 3
+            proj = torch.empty((fan_in, slot.dim), device=device)
+            std = math.sqrt(1.0 / fan_in) / .87962566103423978
+            torch.nn.init.trunc_normal_(proj, 0.0, std, -2 * std, 2 * std,
+                                        generator=generator)
+            params[f"img_{name}"] = proj
+    return params
+
+
 def patchify(images: torch.Tensor, patch: int = IMAGE_PATCH) -> torch.Tensor:
     """[B, S, S, C] pixels -> [B, (S/p)^2, p*p*C] patch rows (row-major
     patches, each flattened row by row as the JAX reshape does)."""
@@ -163,11 +191,20 @@ def gather_group(table: torch.Tensor, group: TableGroup,
     shape -> [..., dim] f32, cast after the gather so compute downstream is
     full precision.
 
+    A table that `parallel.sharded_embedding.mark_row_shard` marked (this
+    rank's block of a row-sharded table) takes this rank's ids of a global
+    batch: `gather_local_rows` looks them up across the ranks.
+
     wide_rows: pre-gathered stored rows [N, P*dim] (N = global_ids.numel()),
     the split-update path's rows: their values must equal the stored rows
     `physical_ids(...)` names. Each id's segment is selected from its wide
     row, so the gradient lands on wide_rows and none on the table."""
     dim = group.dim
+    shard = getattr(table, "row_shard", None)
+    if shard is not None and wide_rows is None:
+        from recommendflow_tpu_torch.parallel.sharded_embedding import (
+            gather_local_rows)
+        return gather_local_rows(table, shard, group, global_ids)
     flat = global_ids.reshape(-1).to(torch.int32).contiguous()
     if wide_rows is None:
         rows = take_rows(table.view(-1, dim), flat)
@@ -292,6 +329,16 @@ def pool_sequence(emb: torch.Tensor, mask: torch.Tensor,
         return torch.where(mask[..., None], emb,
                            torch.full_like(emb, POS_INF)).amin(dim=-2) * any_valid
     raise ValueError(f"unsupported pooling {pooling}")
+
+
+def lookup_feature(params: Dict[str, torch.Tensor], schema: BatchSchema,
+                   slot: FeatureSlot, ids: torch.Tensor) -> torch.Tensor:
+    """One feature: ids [B, H, L] -> pooled [B, H*dim]."""
+    group = schema.groups[slot.dim]
+    emb = gather_group(params[f"dim{slot.dim}"], group,
+                       _global_ids(schema, slot, ids))      # [B, H, L, dim]
+    pooled = pool_sequence(emb, ids > 0, slot.pooling)
+    return pooled.reshape(pooled.shape[0], -1)
 
 
 def embed_batch(params: Dict[str, torch.Tensor], schema: BatchSchema,

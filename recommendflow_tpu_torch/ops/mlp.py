@@ -14,6 +14,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from recommendflow_tpu_torch.parallel.distributed import (all_gather,
+                                                          all_reduce_sum)
+from recommendflow_tpu_torch.parallel.mesh import active_data_parallel
+
 
 def dice(x: torch.Tensor, axis: int = 0, alpha: float = 0.0,
          eps: float = 1e-9) -> torch.Tensor:
@@ -62,13 +66,32 @@ def get_activation(name: Union[str, Callable]) -> Callable:
     return _ACTIVATIONS[name.lower()]
 
 
+def _batch_moments(x: torch.Tensor):
+    """(E[x], E[x^2]) over every axis but the last. Inside a
+    `parallel.mesh.data_parallel` block, over the GLOBAL batch: each rank's
+    sums are all-reduced (differentiably) and divided by the global count,
+    as GSPMD computes flax's mean over a dp-sharded batch."""
+    axes = tuple(range(x.dim() - 1))
+    dp = active_data_parallel()
+    if dp is None:
+        return x.mean(dim=axes), (x * x).mean(dim=axes)
+    mesh, axis = dp
+    group = mesh.group(axis)
+    sums = all_reduce_sum(torch.stack([x.sum(dim=axes),
+                                       (x * x).sum(dim=axes)]), group)
+    count = x.numel() // x.shape[-1] * mesh.size(axis)
+    return sums[0] / count, sums[1] / count
+
+
 class BatchNorm(nn.Module):
     """flax's `nn.BatchNorm` over the last axis: the statistics are taken
     over every other axis ([B, F], or [B, L, U] as Dice normalises, pad
     positions included as in flax).
 
     Training: normalise with the batch mean and the BIASED variance
-    E[x^2] - E[x]^2 (clipped at 0), and move the running statistics as
+    E[x^2] - E[x]^2 (clipped at 0; over the global batch inside a
+    `parallel.mesh.data_parallel` block, `_batch_moments`), and move the
+    running statistics as
     `momentum * running + (1 - momentum) * batch` (flax's momentum: 0.99
     keeps 99%). Eval: normalise with the running statistics. Both compute
     (x - mean) * (rsqrt(var + eps) * weight) + bias, as flax does. An
@@ -97,9 +120,8 @@ class BatchNorm(nn.Module):
         if out_dtype in (torch.bfloat16, torch.float16):
             x = x.float()
         if self.training:
-            axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            mean, mean2 = _batch_moments(x)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -214,7 +236,13 @@ class ExpertsMLP(nn.Module):
     parameter carries a leading expert axis [E, ...] (the JAX package's
     `nn.vmap` of `MLP`, whose tree is `experts/Dense_i/{kernel, bias}`), so
     the experts run as single batched products, not a loop of E modules.
-    Output: [B, E, units[-1]]."""
+    Output: [B, E, units[-1]].
+
+    Expert parallelism (`Trainer(shard_experts=True)`): when the parameters
+    hold this rank's block of experts (`parallel.sharded_embedding.
+    mark_row_shard` over an 'ep' axis), the rank runs its experts and the
+    outputs are all-gathered over the axis into [B, E, units[-1]]
+    (differentiably: each expert's gradient lands on its owner)."""
 
     def __init__(self, num_experts: int, in_features: int,
                  units: Sequence[int], dropout: float = 0.0,
@@ -235,6 +263,10 @@ class ExpertsMLP(nn.Module):
             x = self.act(getattr(self.experts, f"Dense_{i}")(x))
             if self.drop is not None:
                 x = self.drop(x)
+        shard = getattr(self.experts.Dense_0.weight, "row_shard", None)
+        if shard is not None:
+            x = all_gather(x.transpose(0, 1).contiguous(),
+                           shard.mesh.group(shard.axis)).transpose(0, 1)
         return x
 
 

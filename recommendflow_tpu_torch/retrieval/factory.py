@@ -9,6 +9,8 @@ from recommendflow_tpu_torch.retrieval.host_tier import (HostIvfSearcher,
                                                         StreamingSqSearcher)
 from recommendflow_tpu_torch.retrieval.ivf import IvfSearcher
 from recommendflow_tpu_torch.retrieval.pq import IvfPqSearcher, PqSearcher
+from recommendflow_tpu_torch.retrieval.sharded import (ShardedSearcher,
+                                                       ShardedSqSearcher)
 from recommendflow_tpu_torch.retrieval.sq import SqSearcher
 
 _HOST_QTYPE = {"flat": "f32", "sq8": "sq8", "sqfp16": "bf16", "sqbf16": "bf16"}
@@ -25,9 +27,11 @@ def index_factory(dim: int, index_param: str = "Flat",
     HostIvfSearcher with n lists (SQ8 by default). Other keyword arguments,
     `device` among them, go to the searcher.
 
-    The mesh-sharded searchers (`mesh=`) are not ported yet and raise
-    NotImplementedError; a host-tier string with `mesh=` raises the JAX
-    package's ValueError."""
+    `mesh=` (a parallel.mesh.Mesh with an 'items' axis) row-shards the
+    corpus over the mesh's ranks: 'Flat' -> ShardedSearcher, 'SQ*' ->
+    ShardedSqSearcher; any other string raises the JAX package's
+    ValueError (IVF and PQ have no sharded form, the host tier streams from
+    one host)."""
     spec = (index_param or "Flat").strip()
     mesh = kwargs.pop("mesh", None)
     m = re.match(r"^Host(Flat|SQ8|SQfp16|SQbf16)$", spec, re.IGNORECASE)
@@ -43,14 +47,18 @@ def index_factory(dim: int, index_param: str = "Flat",
         return HostIvfSearcher(dim, metric, qtype=_HOST_QTYPE[
             (m_ivf.group(2) or "SQ8").lower()], nlist=int(m_ivf.group(1)),
             **kwargs)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded searchers (index_factory(..., mesh=)) come with "
-            "the parallel slice of the port")
     m = re.match(r"^SQ(8|fp16|bf16)$", spec, re.IGNORECASE)
     if m:
         qtype = "sq8" if m.group(1) == "8" else "bf16"
+        if mesh is not None:
+            return ShardedSqSearcher(dim, metric, qtype=qtype, mesh=mesh,
+                                     **kwargs)
         return SqSearcher(dim, metric, qtype=qtype, **kwargs)
+    if mesh is not None:
+        if spec.lower() != "flat":
+            raise ValueError(
+                f"mesh sharding supports Flat and SQ* indices, not '{spec}'")
+        return ShardedSearcher(dim, metric, mesh=mesh, **kwargs)
     m = re.match(r"^IVF(\d+),PQ(\d+)(x8)?$", spec, re.IGNORECASE)
     if m:
         return IvfPqSearcher(dim, metric, nlist=int(m.group(1)),

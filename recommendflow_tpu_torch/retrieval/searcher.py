@@ -1,6 +1,6 @@
 """The searcher families and their shared pieces under one name (the
 counterpart of `recommendflow_tpu/retrieval/searcher.py`, with the host-RAM
-tier beside them and without the sharded searchers)."""
+tier and the mesh-sharded searchers beside them)."""
 from recommendflow_tpu_torch.retrieval._kernels import (  # noqa: F401
     NEG, _DISTANCE_METRICS, _FAISS_METRIC_INTS, _GROUP, _HIER_MIN_ITEMS,
     _SUPERGROUP, _assign_blocks, _build_capped_lists, _l2_normalize,
@@ -15,5 +15,8 @@ from recommendflow_tpu_torch.retrieval.pq import (  # noqa: F401
 from recommendflow_tpu_torch.retrieval.sq import SqSearcher  # noqa: F401
 from recommendflow_tpu_torch.retrieval.host_tier import (  # noqa: F401
     HostIvfSearcher, StreamingSqSearcher,
+)
+from recommendflow_tpu_torch.retrieval.sharded import (  # noqa: F401
+    ShardedSearcher, ShardedSqSearcher,
 )
 from recommendflow_tpu_torch.retrieval.factory import index_factory  # noqa: F401

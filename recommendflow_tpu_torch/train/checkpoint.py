@@ -20,6 +20,14 @@ capturable (step on the host, LR a float), loads on either. `save_variables` / `
 read a weights-only file (a state dict, `torch.save`), and `backup_model`
 copies a model directory into a `YYYYMMDD` directory of a backup root,
 keeping the newest `keep_days`.
+
+Under a row-sharded mesh (parallel/sharded_embedding.py) a checkpoint
+always holds whole tables and accumulators: each rank's block is gathered
+before the save (a collective every rank calls; in a run of several
+processes rank 0 writes and the others wait at a barrier), and a restore
+cuts each whole table to the block the restoring rank holds. So a
+checkpoint written at one world size, sharded or not, restores at any
+other.
 """
 from __future__ import annotations
 
@@ -30,6 +38,10 @@ import time
 from typing import Any, Dict, Optional
 
 import torch
+
+from recommendflow_tpu_torch.parallel.distributed import host_id, num_hosts
+from recommendflow_tpu_torch.parallel.sharded_embedding import (
+    full_rows, gather_like, own_rows)
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 # the key of a param group's LR as the host last wrote it, beside an LR that
@@ -47,30 +59,67 @@ def _to_cpu(obj: Any) -> Any:
     return obj
 
 
+_TABLE = re.compile(r"table_dim(\d+)$")
+
+
+def _acc_tables(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """'dim{d}' (an accumulator's key) -> its table parameter."""
+    return {f"dim{m.group(1)}": p for name, p in model.named_parameters()
+            if (m := _TABLE.search(name))}
+
+
 def state_to_host(state) -> Dict[str, Any]:
     """A CPU copy of a TrainState's contents (train/trainer.py), for a
-    checkpoint file or an in-memory snapshot."""
-    return {"model": _to_cpu(state.model.state_dict()),
-            "optimizer": _to_cpu(state.optimizer.state_dict()),
-            "table_acc": _to_cpu(state.table_acc),
+    checkpoint file or an in-memory snapshot; row blocks are gathered into
+    whole tables and accumulators (a collective)."""
+    params = dict(state.model.named_parameters())
+    model = {k: full_rows(params[k]) if k in params else v
+             for k, v in state.model.state_dict().items()}
+    tables = _acc_tables(state.model)
+    accs = {k: gather_like(tables.get(k), v)
+            for k, v in state.table_acc.items()}
+    return {"model": _to_cpu(model),
+            "optimizer": _to_cpu(_optimizer_rows(
+                state.optimizer, state.optimizer.state_dict(), gather_like)),
+            "table_acc": _to_cpu(accs),
             "step": int(state.step), "seed": int(state.seed)}
+
+
+def _optimizer_rows(opt, sd: Dict[str, Any], fn) -> Dict[str, Any]:
+    """A torch optimizer's state dict `sd` with `fn(param, tensor)` applied
+    to each per-row tensor of its parameters (an Adam moment of an expert
+    block): gather_like to save whole, own_rows to restore a block. Other
+    optimizers' state dicts pass as they are."""
+    if not isinstance(opt, torch.optim.Optimizer):
+        return sd
+    params = [p for g in opt.param_groups for p in g["params"]]
+    state = {i: {k: fn(params[i], v) if isinstance(v, torch.Tensor)
+                 and v.dim() >= 1 else v for k, v in st.items()}
+             for i, st in sd["state"].items()}
+    return {**sd, "state": state}
 
 
 def load_state(state, saved: Dict[str, Any]):
     """Copy what state_to_host returned back into `state`, in place, onto
-    its devices; the saved seed replaces the state's (a file without one
-    keeps it). Returns state."""
-    state.model.load_state_dict(saved["model"])
+    its devices; a whole table (and its accumulator) is cut to the block a
+    row-sharded state holds. The saved seed replaces the state's (a file
+    without one keeps it). Returns state."""
+    params = dict(state.model.named_parameters())
+    state.model.load_state_dict({k: own_rows(params[k], v) if k in params
+                                 else v for k, v in saved["model"].items()})
     if isinstance(state.optimizer, torch.optim.Optimizer):
-        load_torch_optimizer(state.optimizer, saved["optimizer"])
+        load_torch_optimizer(state.optimizer, _optimizer_rows(
+            state.optimizer, saved["optimizer"], own_rows))
     else:
         state.optimizer.load_state_dict(saved["optimizer"])
     if sorted(saved["table_acc"]) != sorted(state.table_acc):
         raise KeyError(f"accumulators {sorted(saved['table_acc'])} do not "
                        f"match the state's {sorted(state.table_acc)}")
+    tables = _acc_tables(state.model)
     with torch.no_grad():
         for k, v in saved["table_acc"].items():
-            state.table_acc[k].copy_(v)
+            state.table_acc[k].copy_(own_rows(tables[k], v)
+                                     if k in tables else v)
     state.step = int(saved["step"])
     state.seed = int(saved.get("seed", state.seed))
     return state
@@ -133,10 +182,15 @@ def load_torch_optimizer(opt: torch.optim.Optimizer,
 
 
 def _write(path: str, obj: Any) -> str:
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)      # a reader never sees half a file
+    """Write `obj` to `path` atomically; in a run of several processes rank
+    0 writes and every rank waits at a barrier until it has."""
+    if host_id() == 0:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(obj, tmp)
+        os.replace(tmp, path)      # a reader never sees half a file
+    if num_hosts() > 1:
+        torch.distributed.barrier()
     return path
 
 
@@ -148,8 +202,9 @@ def save_checkpoint(path: str, state) -> str:
 def save_step(root: str, state, step: int, keep: int = 5) -> str:
     """Save under `<root>/<step>.pt`, keeping the newest `keep` saves."""
     path = save_checkpoint(os.path.join(root, f"{step}.pt"), state)
-    for old in sorted(_steps(root))[:-keep]:
-        os.remove(os.path.join(root, f"{old}.pt"))
+    if host_id() == 0:
+        for old in sorted(_steps(root))[:-keep]:
+            os.remove(os.path.join(root, f"{old}.pt"))
     return path
 
 

@@ -46,12 +46,10 @@ def _thresholds(n: int, device) -> torch.Tensor:
 def auc_update(state: AucState, y_true: torch.Tensor, y_score: torch.Tensor,
                axis_name: Optional[str] = None) -> AucState:
     """Accumulate one batch (on the state's device, no host read); y_score
-    in [0, 1] (sigmoid, or cosine rescaled). A cross-device sum
-    (`axis_name`) comes with the parallel slice."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "auc_update(axis_name=...) sums the counts across cards: it "
-            "arrives with the parallel slice (ROADMAP Queue 1: parallel)")
+    in [0, 1] (sigmoid, or cosine rescaled). With `axis_name` (an axis of
+    the current mesh, parallel/mesh.py) each rank passes its own rows and
+    the batch's counts are summed over the axis (an all-reduce), so every
+    rank's state counts the global batch."""
     # [B, 1] model outputs must not broadcast against [T, 1] thresholds
     y_true = torch.as_tensor(y_true, device=state.tp.device).reshape(-1)
     y_score = torch.as_tensor(y_score, device=state.tp.device).reshape(-1)
@@ -62,6 +60,13 @@ def auc_update(state: AucState, y_true: torch.Tensor, y_score: torch.Tensor,
     fp = torch.sum(pred_pos & ~pos, dim=1, dtype=torch.float32)
     tn = torch.sum(~pred_pos & ~pos, dim=1, dtype=torch.float32)
     fn = torch.sum(~pred_pos & pos, dim=1, dtype=torch.float32)
+    if axis_name is not None:
+        from recommendflow_tpu_torch.parallel.distributed import (
+            all_reduce_nograd)
+        from recommendflow_tpu_torch.parallel.mesh import axis_group
+        group = axis_group(axis_name)[0]
+        tp, fp, tn, fn = all_reduce_nograd(
+            torch.stack([tp, fp, tn, fn]), group).unbind(0)
     return AucState(state.tp + tp, state.fp + fp, state.tn + tn,
                     state.fn + fn)
 

@@ -119,7 +119,8 @@ def split_table_update(p: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
 
 def sparse_rowwise_adagrad_update(p: torch.Tensor, acc: torch.Tensor,
                                   g_dense: torch.Tensor, sids: torch.Tensor,
-                                  *, lr: float, eps: float = 1e-10
+                                  *, lr: float, eps: float = 1e-10,
+                                  row_offset: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise Adagrad on the rows a batch touches only, in place.
 
@@ -135,10 +136,19 @@ def sparse_rowwise_adagrad_update(p: torch.Tensor, acc: torch.Tensor,
     gather / compute / sorted scatter-SET does. The kernel's contract is
     unique ids: its accumulator read-modify-write would add a duplicate's
     update twice, where the JAX scatter-SET writes the same bytes twice.
-    Every other row keeps its bits."""
+    Every other row keeps its bits.
+
+    row_offset: p, acc and g_dense hold the stored rows [row_offset,
+    row_offset + R) of a row-sharded table (parallel/sharded_embedding.py)
+    and sids are rows of the whole table: the rows outside the block are
+    skipped (kernel 3 skips an id outside [0, R))."""
     if sids.numel() == 0:
         return p, acc
+    if row_offset is not None:
+        sids = sids - row_offset
     uid, valid, n_valid, _ = unique_sorted(sids, num_rows=p.shape[0])
+    if row_offset is not None:
+        valid = valid & (uid >= 0) & (uid < p.shape[0])
     rows = torch.where(valid, uid, torch.zeros_like(uid))   # padding: row 0
     gs = gather_rows(g_dense, rows, check_ids=False).float()
     return sparse_adagrad_apply(p, acc, uid, gs, n_valid, lr=lr, eps=eps)

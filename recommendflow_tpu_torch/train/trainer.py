@@ -62,9 +62,47 @@ the step in flight on SIGTERM or SIGINT, skips validation and the epoch-end
 callbacks and writes `<preempt_dir>/<step>.pt`, from which a later `fit`
 resumes mid-epoch on a dataset with a length and `iter_from`;
 `fit(profile_dir=, profile_steps=)` traces a window of epoch 0's steps with
-torch.profiler (utils/profiling.py). The JAX trainer's cross-process stop
-agreement (`_PreemptSync`, `preempt_window`) and its cluster-min epoch cap
-are multi-process only and wait for the parallel slice.
+torch.profiler (utils/profiling.py).
+
+Data parallel (`Trainer(mesh=make_mesh())`, one process per device,
+parallel/): each process passes its own batches, its rows of the global
+batch (`parallel.mesh.shard_batch` cuts them from a global one), and the
+step computes what the JAX trainer computes on the global batch under pjit:
+
+  * each rank embeds its own rows and runs the towers; inside the step's
+    `data_parallel` block BatchNorm takes its statistics over the global
+    batch (all-reduced sums) and the model's loss sees the global batch
+    (an in-batch loss through its `axis_name` path; any other on the
+    all-gathered inputs: `losses.match.global_batch_loss`);
+  * the dense gradients are averaged over the ranks by an all-reduce (each
+    rank's backward gives world-size times its share of the global
+    gradient: parallel/distributed.py);
+  * replicated tables: every rank's (stored-row ids, row gradients) are
+    all-gathered and every rank applies the same update of the global
+    batch (the split strategies, or the legacy update from the averaged
+    table gradient over the global batch's touched rows), under
+    deterministic algorithms on a card with more than one rank, so that the
+    replicas stay bitwise equal;
+  * `shard_tables=True`: each table the rules shard
+    (`parallel.mesh.table_sharding_rules`: >= 8192 stored rows that the
+    axis divides) and its accumulator hold this rank's block of rows; the
+    embed pass gathers through `parallel.sharded_embedding`, and the
+    legacy planner's update runs on each block (the split planner is off
+    under shard_tables, as in the JAX trainer);
+  * the metrics are each rank's value averaged over the ranks: the global
+    batch's loss;
+  * `predict` and `evaluate` return the global outputs on every rank (one
+    all-gather a batch: every rank must iterate the same number of
+    batches).
+
+On a card the mesh step is captured into CUDA graphs as the single-card
+step is (train/graphs.py): its NCCL collectives capture, and a replay is
+bitwise the eager step (measured in a world of one; a capture across
+cards is not measured). In a multi-process fit the ranks agree on the
+preemption stop step
+(`_PreemptSync`, `preempt_window`) and on the cluster-min batches per epoch;
+`scan_steps` then defaults to 1 and a stacked run drops its tails, as in
+the JAX trainer.
 
 Every host batch's sparse ids are checked against their tables on the host
 (`data.schema.check_batch_ids`, IndexError), in the prefetch thread for
@@ -79,6 +117,7 @@ import functools
 import re
 import signal
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping,
                     Optional, Tuple, Union)
@@ -95,6 +134,13 @@ from recommendflow_tpu_torch.ops.cuda.table_update import rowwise_adagrad_update
 from recommendflow_tpu_torch.ops.embedding import (fused_group_ids,
                                                    physical_ids, rows_key,
                                                    touched_stored_rows)
+from recommendflow_tpu_torch.parallel.distributed import (all_gather_nograd,
+                                                          all_reduce_nograd,
+                                                          num_hosts)
+from recommendflow_tpu_torch.parallel.mesh import (Mesh, data_parallel,
+                                                   expert_sharding_rules,
+                                                   table_sharding_rules)
+from recommendflow_tpu_torch.parallel.sharded_embedding import mark_row_shard
 from recommendflow_tpu_torch.train.callbacks import Callback, History
 from recommendflow_tpu_torch.train.checkpoint import (HOST_LR, load_state,
                                                       save_step)
@@ -192,7 +238,8 @@ def eval_outputs(model: torch.nn.Module, batch: Mapping[str, Any],
 
 def predict(model: torch.nn.Module, dataset: Iterable[Mapping[str, np.ndarray]],
             device: Union[str, torch.device] = "cuda",
-            graph: Optional[StepGraph] = None) -> Dict[str, np.ndarray]:
+            graph: Optional[StepGraph] = None,
+            mesh: Optional[Mesh] = None) -> Dict[str, np.ndarray]:
     """Stacked model outputs over a dataset of host batches, as numpy.
 
     The model runs in eval mode under no_grad on `device` (default "cuda";
@@ -203,7 +250,8 @@ def predict(model: torch.nn.Module, dataset: Iterable[Mapping[str, np.ndarray]],
     their ids checked (IndexError) in a background thread
     (data.pipeline.prefetch) while the card runs; outputs stay on the
     device until the end, so the host does not wait on the card batch by
-    batch."""
+    batch. With a `mesh` each rank passes its own batches and every rank
+    returns the global outputs (`gather_outputs`)."""
     dev = resolve_device(device)
     if graph is None and dev.type == "cuda":
         graph = StepGraph(dev, "predict")
@@ -211,19 +259,101 @@ def predict(model: torch.nn.Module, dataset: Iterable[Mapping[str, np.ndarray]],
     chunks: Dict[str, List[torch.Tensor]] = {}
     with torch.no_grad():
         for batch in prefetch(checked_batches(model, dataset)):
-            out = eval_outputs(model, batch, dev, graph)
+            out = gather_outputs(eval_outputs(model, batch, dev, graph), mesh)
             for k, v in out.items():
                 chunks.setdefault(k, []).append(v)
     return {k: torch.cat(v).cpu().numpy() for k, v in chunks.items()}
 
 
+def gather_outputs(out: Dict[str, torch.Tensor], mesh: Optional[Mesh],
+                   axis: str = "dp") -> Dict[str, torch.Tensor]:
+    """Each rank's outputs of its rows -> the global batch's outputs, in
+    rank order (the JAX trainer's `_fetch`), or `out` without a mesh."""
+    if mesh is None:
+        return out
+    return {k: all_gather_nograd(v, mesh.group(axis)) for k, v in out.items()}
+
+
 def resolve_scan_steps(scan_steps: Optional[int],
-                       device: Union[str, torch.device]) -> int:
+                       device: Union[str, torch.device],
+                       multiprocess: bool = False) -> int:
     """fit's steps per stack: `scan_steps`, or with None 8 on a card and 1
-    on the CPU (the JAX trainer's 8 on an accelerator and 1 on the CPU)."""
+    on the CPU or in a multi-process run (the JAX trainer's rule)."""
     if scan_steps is not None:
         return max(int(scan_steps), 1)
-    return 8 if torch.device(device).type == "cuda" else 1
+    return 8 if torch.device(device).type == "cuda" and not multiprocess \
+        else 1
+
+
+class _PreemptSync:
+    """Cross-process agreement on the preemption stop step (the JAX
+    trainer's `_PreemptSync`).
+
+    A SIGTERM lands on each rank at a slightly different time; a rank that
+    stopped dispatching steps while another dispatched one more would leave
+    the straggler blocked in that step's collectives. Every step each rank
+    contributes its local flag to a one-element all-reduce MAX, dispatched
+    without waiting (`async_op`), and reads the agreement of `window` steps
+    ago, which has long since completed: on a card its value is copied to
+    pinned host memory behind an event, so the read waits for that
+    all-reduce only, not for the steps queued since. Agreements are
+    consumed deterministically, each exactly `window` pushes after its
+    dispatch, so every rank stops after the SAME number of steps."""
+
+    def __init__(self, group, device: torch.device, window: int = 16):
+        from collections import deque
+        self.group, self.device = group, device
+        self.window = max(int(window), 0)
+        self.pending: "deque" = deque()
+
+    def _agree(self, flag: bool):
+        t = torch.full((1,), 1 if flag else 0, dtype=torch.int32,
+                       device=self.device)
+        work = torch.distributed.all_reduce(
+            t, op=torch.distributed.ReduceOp.MAX, group=self.group,
+            async_op=True)
+        if self.device.type != "cuda":
+            return t, work, None
+        work.wait()              # the current stream waits; the host does not
+        host = torch.empty((1,), dtype=torch.int32, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, None, event
+
+    @staticmethod
+    def _read(item) -> bool:
+        value, work, event = item
+        if work is not None:
+            work.wait()
+        if event is not None:
+            event.synchronize()
+        return int(value[0]) > 0
+
+    def push(self, flag: bool) -> None:
+        """This step's local flag (once per dispatched step on EVERY rank:
+        the reduce is a collective)."""
+        self.pending.append(self._agree(flag))
+
+    def should_stop(self) -> bool:
+        """The settled agreements older than `window` pushes (no
+        collective)."""
+        stop = False
+        while len(self.pending) > self.window:
+            stop |= self._read(self.pending.popleft())
+        return stop
+
+    def agree(self, flag: bool) -> bool:
+        """One immediate agreement (a collective): True iff ANY rank raised
+        `flag`."""
+        return self._read(self._agree(flag))
+
+    def drain(self, flag: bool) -> bool:
+        """Epoch end: every pending agreement plus one fresh one (a
+        collective, dispatched whatever this rank knows already)."""
+        stop = any([self._read(x) for x in self.pending])
+        self.pending.clear()
+        return self.agree(flag) or stop
 
 
 def split_costs(table_bytes: int, n_ids: int) -> Tuple[float, float]:
@@ -339,7 +469,13 @@ class Trainer:
     "auto" (each split table's by `plan_strategy`, from the sample batch's
     ids) or one of "dense", "sparse_set", "sparse" for every split table.
     device defaults to "cuda" and raises without a card unless "cpu" is
-    asked for; the model must live there."""
+    asked for; the model must live there.
+
+    mesh: a `parallel.mesh.Mesh` with a 'dp' axis (the module docstring's
+    data parallelism; the device is then the mesh's); shard_tables
+    row-shards the large tables over 'dp'; shard_experts splits Mmoe's
+    experts over an 'ep' axis (`parallel.mesh.expert_sharding_rules`: the
+    mesh must have one), each rank running its block of experts."""
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: Optional[OptimizerSpec] = None,
@@ -349,7 +485,9 @@ class Trainer:
                  table_learning_rate: Optional[float] = None,
                  table_update: str = "auto",
                  split_strategy: str = "auto",
-                 device: Union[str, torch.device] = "cuda", seed: int = 0):
+                 device: Union[str, torch.device] = "cuda", seed: int = 0,
+                 mesh: Optional[Mesh] = None, shard_tables: bool = False,
+                 shard_experts: bool = False):
         if table_update not in ("auto", "split", "sparse", "dense"):
             raise ValueError(f"table_update must be auto|split|sparse|dense, "
                              f"got '{table_update}'")
@@ -360,7 +498,16 @@ class Trainer:
         if split_strategy != "auto" and split_strategy not in STRATEGIES:
             raise ValueError(f"split_strategy {split_strategy!r}: auto or one "
                              f"of {STRATEGIES}")
-        self.device = resolve_device(device)
+        if (shard_tables or shard_experts) and mesh is None:
+            raise ValueError("shard_tables / shard_experts need a mesh "
+                             "(parallel.make_mesh)")
+        if shard_experts and "ep" not in mesh.shape:
+            expert_sharding_rules({}, mesh)          # its ValueError
+        self.mesh = mesh
+        self.shard_tables = shard_tables
+        self.shard_experts = shard_experts
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         if any(p.device.type != self.device.type for p in model.parameters()):
             raise ValueError(f"the model's parameters are not on {self.device}")
         self.model = model
@@ -375,11 +522,13 @@ class Trainer:
         self.base_lr = learning_rate
         self.table_lr = (default_table_lr(learning_rate)
                          if table_learning_rate is None else table_learning_rate)
+        # the split planner is off under shard_tables, as in the JAX trainer
         self.split = optimizer is None and table_update in ("auto", "split") \
-            and getattr(model, "row_injection", False)
+            and getattr(model, "row_injection", False) and not shard_tables
         if table_update == "split" and not self.split:
-            log.warning("table_update='split' needs model.row_injection and "
-                        "the default optimizer; the legacy planner decides")
+            log.warning("table_update='split' needs model.row_injection, "
+                        "the default optimizer and unsharded tables; the "
+                        "legacy planner decides")
         self.split_strategy = split_strategy
         self.table_update = table_update
         self._split_dims: Dict[int, str] = {}
@@ -419,12 +568,14 @@ class Trainer:
         user-chosen optimizer)."""
         schema = self.model.schema
         tables = table_params(self.model)
+        # the planners cost the global batch (each rank holds its rows)
+        ranks = self.mesh.size("dp") if self.mesh is not None else 1
         n_ids: Dict[int, int] = {}
         for name in schema.order:
             slot = schema.slots[name]
             if slot.kind == "sparse" and name in sample_batch:
                 n_ids[slot.dim] = n_ids.get(slot.dim, 0) + \
-                    int(np.prod(sample_batch[name].shape))
+                    int(np.prod(sample_batch[name].shape)) * ranks
         self._planned = True
         self._split_dims = {}
         self._sparse_dims = []
@@ -483,9 +634,12 @@ class Trainer:
         if not getattr(self.model, "pretrained_grafted", False):
             apply_pretrained(self.model)
             self.model.pretrained_grafted = True
+        dims = self.plan(sample_batch)
+        if self.mesh is not None:
+            self._place_on_mesh()
         tables = table_params(self.model)
-        table_acc = {f"dim{d}": init_accumulator(tables[d])
-                     for d in self.plan(sample_batch)}
+        # an accumulator follows its table's placement (a row block)
+        table_acc = {f"dim{d}": init_accumulator(tables[d]) for d in dims}
         if self.optimizer is not None:
             optimizer = self.optimizer.build(list(
                 self.model.named_parameters()))
@@ -513,9 +667,35 @@ class Trainer:
                      "autograd; no table gradient)",
                      {f"dim{d}": s for d, s in self._split_dims.items()})
         n = sum(p.numel() for p in self.model.parameters())
-        log.info("initialized %s: %.3fM params on %s",
-                 type(self.model).__name__, n / 1e6, self.device)
+        log.info("initialized %s: %.3fM params on %s%s",
+                 type(self.model).__name__, n / 1e6, self.device,
+                 f" (mesh {self.mesh.shape})" if self.mesh is not None else "")
         return TrainState(self.model, optimizer, table_acc, 0, self.seed)
+
+    def _place_on_mesh(self) -> None:
+        """Every rank starts from rank 0's weights and buffers (broadcast);
+        under shard_tables each table the rules shard keeps this rank's
+        block of rows, under shard_experts each expert leaf this rank's
+        block of experts (`mark_row_shard`). Idempotent."""
+        with torch.no_grad():
+            for t in list(self.model.parameters()) + list(self.model.buffers()):
+                if getattr(t, "row_shard", None) is None:
+                    torch.distributed.broadcast(t.data, src=0)
+        named = {name: p for name, p in self.model.named_parameters()
+                 if getattr(p, "row_shard", None) is None}
+        for on, axis, rules in (
+                (self.shard_tables, "dp", table_sharding_rules),
+                (self.shard_experts, "ep", expert_sharding_rules)):
+            if not on:
+                continue
+            leaves = {n: p for n, p in named.items()
+                      if axis == "ep" or _TABLE.search(n)}
+            specs = rules(leaves, self.mesh, axis)
+            sharded = [n for n, spec in specs.items() if spec]
+            for n in sharded:
+                mark_row_shard(named[n], self.mesh, axis)
+            log.info("sharded over %s=%d: %s", axis, self.mesh.size(axis),
+                     sharded)
 
     def _validate_row_injection(self, batch: Dict[str, torch.Tensor]) -> None:
         """One tiny forward/backward with the rows injected: every split
@@ -583,9 +763,20 @@ class Trainer:
                              rows: Dict[int, torch.Tensor],
                              batch: Optional[Dict[str, torch.Tensor]] = None
                              ) -> None:
+        """`_apply_row_grads` with the split path's gathered rows, whose
+        .grad holds the row gradients."""
+        self._apply_row_grads(state, phys, {d: r.grad for d, r in rows.items()},
+                              batch)
+
+    def _apply_row_grads(self, state: TrainState,
+                         phys: Dict[int, torch.Tensor],
+                         row_grads: Dict[int, torch.Tensor],
+                         batch: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> None:
         """The tables' row-wise Adagrad, in place (a user-chosen optimizer
-        has updated them already). The touched-row path reads the batch's
-        ids."""
+        has updated them already): the split path from the stored-row ids
+        and row gradients, the touched-row path from the batch's ids (on a
+        row block, the rows of the whole table that fall in it)."""
         if self.optimizer is not None:
             return
         tables = table_params(self.model)
@@ -595,7 +786,7 @@ class Trainer:
                     if d in phys:
                         split_table_update(
                             tables[d].detach(), state.table_acc[f"dim{d}"],
-                            phys[d], rows[d].grad, lr=self.table_lr,
+                            phys[d], row_grads[d], lr=self.table_lr,
                             strategy=strategy)
                 return
             touched = touched_stored_rows(
@@ -606,10 +797,12 @@ class Trainer:
                 if t.grad is None:
                     continue
                 acc = state.table_acc[f"dim{d}"]
+                shard = getattr(t, "row_shard", None)
                 if f"dim{d}" in touched:
                     sparse_rowwise_adagrad_update(
                         t.detach(), acc, t.grad, touched[f"dim{d}"],
-                        lr=self.table_lr)
+                        lr=self.table_lr,
+                        row_offset=None if shard is None else shard.start)
                 else:
                     rowwise_adagrad_update(t.detach(), acc, t.grad,
                                            lr=self.table_lr)
@@ -643,6 +836,8 @@ class Trainer:
         """The step's device work, which a CUDA graph captures: forward,
         backward, the dense update and the table updates. Returns the
         metrics as device scalars."""
+        if self.mesh is not None:
+            return self._mesh_device_step(state, batch)
         loss, aux, phys, rows = self._forward_backward(batch)
         if isinstance(state.optimizer, OptaxOptimizer):
             state.optimizer.apply()
@@ -650,6 +845,75 @@ class Trainer:
             state.optimizer.step()
         self._apply_table_updates(state, phys, rows, batch)
         return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+
+    def _mesh_device_step(self, state: TrainState,
+                          batch: Dict[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+        """The data-parallel step on this rank's rows (module docstring)."""
+        mesh = self.mesh
+        group, n = mesh.group("dp"), mesh.size("dp")
+        with data_parallel(mesh, "dp"):
+            loss, aux, phys, rows = self._forward_backward(batch)
+        self._average_gradients()
+        if isinstance(state.optimizer, OptaxOptimizer):
+            state.optimizer.apply()
+        else:
+            state.optimizer.step()
+        # the global batch's ids and row gradients, in rank order: the rows
+        # of the global batch in order (first summed over the mesh's other
+        # axes, whose ranks hold the same rows: each has part of the
+        # gradient when the experts are split)
+        others = mesh.group_of([a for a in mesh.axis_names if a != "dp"])
+        world = mesh.world_size
+        phys = {d: all_gather_nograd(v, group) for d, v in phys.items()}
+        row_grads = {}
+        for d, r in rows.items():
+            g = r.grad if others == "none" else \
+                all_reduce_nograd(r.grad, others)
+            row_grads[d] = all_gather_nograd(g, group) / world
+        if self._sparse_dims:      # the touched rows of the global batch
+            schema = self.model.schema
+            batch = {k: all_gather_nograd(v, group) for k, v in batch.items()
+                     if k in schema.slots and schema.slots[k].kind == "sparse"}
+        with _deterministic(self.device.type == "cuda" and world > 1):
+            self._apply_row_grads(state, phys, row_grads, batch)
+        metrics = {"loss": loss.detach(), **{k: v.detach()
+                                             for k, v in aux.items()}}
+        names = sorted(metrics)
+        mean = all_reduce_nograd(torch.stack(
+            [metrics[k].float().reshape(()) for k in names]), group) / n
+        return dict(zip(names, mean.unbind(0)))
+
+    def _average_gradients(self) -> None:
+        """Each parameter's gradient -> its global-batch gradient: summed
+        over the ranks that hold the same block (a replicated parameter:
+        every rank; a row block: the ranks of the mesh's other axes; one
+        all-reduce per group and dtype, over a flat buffer) and divided by
+        the world size (every rank's loss is the global loss)."""
+        from torch._utils import (_flatten_dense_tensors,
+                                  _unflatten_dense_tensors)
+        mesh = self.mesh
+        buckets: Dict[Tuple[Tuple[str, ...], torch.dtype],
+                      List[torch.Tensor]] = {}
+        for p in self.model.parameters():
+            if p.grad is None:
+                continue
+            shard = getattr(p, "row_shard", None)
+            axes = tuple(a for a in mesh.axis_names
+                         if shard is None or a != shard.axis)
+            buckets.setdefault((axes, p.grad.dtype), []).append(p.grad)
+        with torch.no_grad():
+            for (axes, _), grads in buckets.items():
+                group = mesh.group_of(axes)
+                if group == "none":
+                    for g in grads:
+                        g.div_(mesh.world_size)
+                    continue
+                flat = _flatten_dense_tensors(grads)
+                torch.distributed.all_reduce(flat, group=group)
+                flat.div_(mesh.world_size)
+                for g, v in zip(grads, _unflatten_dense_tensors(flat, grads)):
+                    g.copy_(v)
 
     def train_steps(self, state: TrainState,
                     batches: List[Mapping[str, Any]]):
@@ -709,6 +973,23 @@ class Trainer:
         while a schedule is active."""
         set_learning_rate(state, lr)
 
+    def _epoch_cap(self, train_ds) -> Optional[int]:
+        """The cluster-min batches per epoch, agreed once (a collective
+        every rank reaches); None when a rank's dataset has no length."""
+        try:
+            local = len(train_ds)
+        except TypeError:
+            local = -1
+        counts = [int(c) for c in all_gather_nograd(torch.tensor(
+            [local], dtype=torch.int64, device=self.device), None).cpu()]
+        if min(counts) < 0:
+            return None
+        if min(counts) != max(counts):
+            log.warning("per-rank batch counts differ %s; capping each epoch "
+                        "at the cluster min %d to keep the collectives in "
+                        "step", counts, min(counts))
+        return min(counts)
+
     # --------------------------------------------------------------- loops
     def _eval_graph(self, model: torch.nn.Module) -> Optional[StepGraph]:
         """The eval forward's StepGraph on a card (None on the CPU)."""
@@ -720,11 +1001,12 @@ class Trainer:
 
     def predict(self, state: TrainState, dataset: Iterable) -> Dict[str, np.ndarray]:
         return predict(state.model, dataset, self.device,
-                       self._eval_graph(state.model))
+                       self._eval_graph(state.model), self.mesh)
 
     def evaluate(self, state: TrainState, dataset: Iterable) -> Dict[str, float]:
         """val_loss (the model's loss on eval outputs) and val_auc (cosine
-        similarity against the label)."""
+        similarity against the label); under a mesh over the global batches
+        (every rank passes its rows and gets the same numbers)."""
         from recommendflow_tpu_torch.train.metrics import roc_auc
         model = state.model
         try:
@@ -736,7 +1018,8 @@ class Trainer:
         model.eval()
         with torch.no_grad():
             for batch in prefetch(checked_batches(model, dataset)):
-                out = eval_outputs(model, batch, self.device, graph)
+                out = gather_outputs(
+                    eval_outputs(model, batch, self.device, graph), self.mesh)
                 if "user" in out and "ad" in out:
                     y, u, a = out["label"], out["user"], out["ad"]
                     if loss_fn is not None:
@@ -763,7 +1046,7 @@ class Trainer:
             profile_dir: Optional[str] = None,
             profile_steps: Tuple[int, int] = (10, 15),
             resume_data: bool = True, preempt_dir: Optional[str] = None,
-            scan_steps: Optional[int] = None,
+            scan_steps: Optional[int] = None, preempt_window: int = 16,
             verbose: bool = True) -> Dict[str, Any]:
         """Train `epochs` epochs; returns {'state', 'history', 'preempted'}
         ('preempted': the run ended on control["preempt"]). Each epoch's
@@ -787,7 +1070,15 @@ class Trainer:
         profile_steps[0] up to profile_steps[1] are traced (torch.profiler,
         a Chrome trace under profile_dir; closed at the epoch's end if the
         epoch is shorter; a stack that crosses a bound moves it to the
-        stack's end, as in the JAX trainer)."""
+        stack's end, as in the JAX trainer).
+
+        Multi-process (a mesh over several processes): the ranks agree on
+        the stop step through `_PreemptSync` (the agreed stop lands
+        `preempt_window` steps after the signal; stacks are not cut), every
+        epoch is capped at the cluster-min batch count when train_ds has a
+        length, and scan_steps defaults to 1; an explicit scan_steps > 1
+        drops each epoch's tail and rounds the cap down to whole stacks, so
+        every rank runs the same items."""
         callbacks = list(callbacks or [])
         history = History()
         callbacks.append(history)
@@ -807,7 +1098,20 @@ class Trainer:
                 skip = state.step % per_epoch
                 log.info("resuming at epoch %d, batch %d (step %d)",
                          start_epoch, skip, state.step)
-        k_scan = resolve_scan_steps(scan_steps, self.device)
+        multiproc = self.mesh is not None and num_hosts() > 1
+        k_scan = resolve_scan_steps(scan_steps, self.device, multiproc)
+        psync = _PreemptSync(None, self.device, preempt_window) \
+            if multiproc else None
+        cap = self._epoch_cap(train_ds) if multiproc else None
+        drop_tail = multiproc and k_scan > 1
+        if drop_tail and cap is not None:
+            rounded = cap // k_scan * k_scan
+            if rounded == 0:
+                k_scan, drop_tail = 1, False     # fewer batches than a stack
+            elif rounded != cap:
+                log.info("scan_steps=%d: epoch cap %d -> %d (whole stacks)",
+                         k_scan, cap, rounded)
+                cap = rounded
         # a previous fit's early stop or handled preemption must not make
         # this run train zero steps (the LR scale carries over on purpose)
         self.control["stop"] = False
@@ -818,6 +1122,13 @@ class Trainer:
         logs: Dict[str, float] = {}
         trace, traced = None, False
         for epoch in range(start_epoch, epochs):
+            if psync is not None:
+                # a signal or an early stop that reached one rank between
+                # epochs: every rank agrees before the next epoch's steps
+                if psync.agree(bool(self.control["stop"])):
+                    self.control["stop"] = True
+                if psync.agree(bool(self.control.get("preempt"))):
+                    self.control["preempt"] = True
             if self.control["stop"] or self.control.get("preempt"):
                 break
             if self.control["lr_scale"] != lr_scale:
@@ -837,7 +1148,8 @@ class Trainer:
             running: Dict[str, torch.Tensor] = {}
             items = checked_batches(self.model, raw)
             if k_scan > 1:
-                items = _chunk_stack(items, k_scan)
+                items = _chunk_stack(items, k_scan, drop_tail)
+            done = skip if epoch == start_epoch else 0
             for item in prefetch(items):
                 if profile_dir is not None and epoch == 0:
                     if not traced and n_steps >= profile_steps[0]:
@@ -845,17 +1157,28 @@ class Trainer:
                     elif trace is not None and n_steps >= profile_steps[1]:
                         stop_trace(trace)
                         trace = None
-                if self.control.get("preempt"):
+                size = len(next(iter(item.stacked.values()))) \
+                    if isinstance(item, _Stack) else 1
+                if cap is not None and done + n_steps + size > cap:
+                    break              # the cluster-min: collectives in step
+                if psync is not None:
+                    if psync.should_stop():
+                        self.control["preempt"] = True
+                        break
+                elif self.control.get("preempt"):
                     break
                 if isinstance(item, _Stack):
                     state, metrics, inc = self._train_steps_stacked(
                         state, item.stacked,
-                        stop=lambda: bool(self.control.get("preempt")))
+                        stop=None if psync is not None else
+                        lambda: bool(self.control.get("preempt")))
                     n_ex = item.rows * inc
                 else:
                     state, metrics = self._step(state, self._put(item,
                                                                  check=False))
                     inc, n_ex = 1, _num_examples(item)
+                if psync is not None:
+                    psync.push(bool(self.control.get("preempt")))
                 n_steps += inc
                 n_examples += n_ex
                 for k, v in metrics.items():
@@ -878,6 +1201,11 @@ class Trainer:
                 torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
             logs["examples_per_sec"] = n_examples / max(dt, 1e-9)
+            if psync is not None and psync.drain(
+                    bool(self.control.get("preempt"))):
+                # a flag raised inside the window or in the epoch's tail:
+                # every rank agrees here, so all of them save below
+                self.control["preempt"] = True
             if self.control.get("preempt"):
                 # a spot VM's grace window is seconds: checkpoint first, no
                 # validation pass and no epoch-end callbacks
@@ -901,6 +1229,21 @@ class Trainer:
             cb.on_train_end(self, state, logs)
         return {"state": state, "history": history.epochs,
                 "preempted": preempted}
+
+
+@contextmanager
+def _deterministic(on: bool):
+    """torch.use_deterministic_algorithms for the block when `on` (the
+    replicated tables' update on a card: the duplicate-row sums' float
+    atomics would otherwise let the replicas drift apart bit by bit)."""
+    if not on or torch.are_deterministic_algorithms_enabled():
+        yield
+        return
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def install_preemption_handler(trainer: Trainer, signals=None
@@ -948,11 +1291,13 @@ def _shape(batch: Mapping[str, Any]):
                   for k, v in batch.items())
 
 
-def _chunk_stack(batches: Iterable[Mapping[str, Any]], k: int):
+def _chunk_stack(batches: Iterable[Mapping[str, Any]], k: int,
+                 drop_tail: bool = False):
     """Consecutive batches stacked k at a time (`_Stack`), in the thread
     that draws them (prefetch's), as the JAX trainer's `_chunk_stack`; a
     batch that does not share the stack's shape, and the tail of fewer than
-    k, pass as single batches."""
+    k, pass as single batches (dropped with `drop_tail`: a multi-process
+    run's ranks must run the same items)."""
     buf: List[Mapping[str, Any]] = []
     for b in batches:
         if buf and _shape(b) != _shape(buf[0]):
@@ -962,4 +1307,5 @@ def _chunk_stack(batches: Iterable[Mapping[str, Any]], k: int):
         if len(buf) == k:
             yield _Stack(_stack_batches(buf), _num_examples(buf[0]))
             buf = []
-    yield from buf
+    if not drop_tail:
+        yield from buf

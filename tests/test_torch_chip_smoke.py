@@ -28,8 +28,8 @@ REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "flash_attention", "slice", "train", "ranking", "train_options",
              "long_runs", "dispatch", "ranking_zoo",
              "attention_ranking", "text_recall", "simbert", "matching_zoo",
-             "export_serve", "sq_search", "ann", "host_tier", "encode",
-             "serve", "text_search", "cli")
+             "export_serve", "sq_search", "ann", "host_tier", "parallel",
+             "encode", "serve", "text_search", "cli")
 
 
 def _run(args, cwd):
@@ -77,6 +77,16 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
             rec = json.loads(line)
             phases[rec["phase"]] = rec
     assert sorted(phases) == sorted(REHEARSED)
+    par = phases["parallel"]       # a world of one over gloo on the CPU
+    assert par["backend"] == "gloo" and par["world"] == 1
+    assert par["row_sharded"] == ["embedder.table_dim16"]
+    assert sorted(par["steps_check"]) == ["replicated", "replicated_graphed",
+                                          "sharded"]
+    for name, check in par["steps_check"].items():
+        assert check["state_max_rel_err"] <= par["tolerance"]
+        if name != "replicated_graphed":
+            assert check["loss_rel_err"] <= par["tolerance"]
+    assert sorted(par["search"]["checks"]) == ["Flat", "SQ8", "SQbf16"]
     assert phases["gather_rows"]["bitwise_equal"] is True
     assert max(phases["grouped_score_max"]["max_abs_err"].values()) <= 1e-4
     assert {"u8_ip", "u8_l2"} <= set(phases["grouped_score_max"]["max_abs_err"])

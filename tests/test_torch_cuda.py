@@ -1983,3 +1983,177 @@ def test_host_tier_stream_waits_for_work_queued_before_it(cuda):
         for _, _, codes, _ in s._stream():
             pass
         assert float(y) == 0.0
+
+
+# ------------------------------------------------------------ parallel (PR)
+_WORLD_OF_ONE = textwrap.dedent('''
+    import json, math, socket, sys
+    import numpy as np
+    import torch
+    sys.path.insert(0, sys.argv[1])
+    from recommendflow_tpu_torch.parallel import (init_distributed,
+                                                  make_mesh,
+                                                  sharded_gather_group)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(0, 1, f"tcp://127.0.0.1:{port}", device="cuda")
+    import torch.distributed as dist
+    mesh = make_mesh()
+    items = make_mesh(("items",), current=False)
+    dev = mesh.device
+    out = {"backend": dist.get_backend()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    # 1. the sharded gather at the bench dim-64 bf16 layout, and its
+    # gradient, against the single table's
+    from recommendflow_tpu_torch.ops.embedding import gather_group
+    class G: dim = 64
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn((65536, 256), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+    ids = torch.randint(0, 65536 * 4, (4096, 21), generator=gen, device=dev)
+    w = torch.randn((4096, 21, 64), generator=gen, device=dev)
+    a = table.clone().requires_grad_()
+    b = table.clone().requires_grad_()
+    ra = sharded_gather_group(mesh, "dp", a, G, ids)
+    rb = gather_group(b, G, ids)
+    (ra * w).sum().backward()
+    (rb * w).sum().backward()
+    out["gather"] = {
+        "rows_bitwise": bool(torch.equal(ra, rb)),
+        "grad_bitwise": bool(torch.equal(a.grad.view(torch.int16),
+                                         b.grad.view(torch.int16)))}
+
+    # 2. the sharded searchers against the resident ones
+    from recommendflow_tpu_torch.retrieval import index_factory
+    rng = np.random.default_rng(1)
+    corpus = rng.standard_normal((300_000, 128), np.float32)
+    queries = rng.standard_normal((256, 128), np.float32)
+    out["search"] = {}
+    for spec in ("Flat", "SQbf16", "SQ8"):
+        r = index_factory(128, spec, "ip", device=dev).train(corpus)
+        m = index_factory(128, spec, "ip", mesh=items).train(corpus)
+        rs, ri = r.search(queries, 100, return_items=False)
+        ms, mi = m.search(queries, 100, return_items=False)
+        out["search"][spec] = {
+            "ids_equal": float((ri == mi).mean()),
+            "score_rel": float((np.abs(rs - ms) /
+                                np.maximum(np.abs(rs), 1.0)).max())}
+
+    # 3. three mesh steps (replicated, then row-sharded) against the
+    # single card's
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.schema import compile_schema
+    from recommendflow_tpu_torch.data.synthetic import synthetic_batch
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.train.trainer import Trainer
+    conf = Configuration(sys.argv[2])
+    batches = [synthetic_batch(compile_schema(conf.features), 256,
+                               seed=70 + i) for i in range(3)]
+
+    def run(mesh_, shard, mode):
+        model, _ = build_network(conf.networks["class"], {
+            "conf": conf, "device": dev, "seed": 0})
+        t = Trainer(model, table_update=mode, device=dev, mesh=mesh_,
+                    shard_tables=shard)
+        st = t.init_state(batches[0])
+        losses = []
+        for bt in batches:
+            st, mt = t.train_step(st, bt)
+            losses.append(float(mt["loss"]))
+        state = {k: v.detach().float().cpu()
+                 for k, v in model.state_dict().items()}
+        state.update({"acc/" + k: v.cpu() for k, v in st.table_acc.items()})
+        return losses, state
+
+    out["steps"] = {}
+    for name, mode, shard in (("replicated", "auto", False),
+                              ("sharded", "sparse", True)):
+        sl, ss = run(None, False, mode)
+        ml, ms_ = run(mesh, shard, mode)
+        worst = 0.0
+        for k in ss:
+            den = float(ss[k].abs().max()) or 1.0
+            worst = max(worst, float((ms_[k] - ss[k]).abs().max()) / den)
+        out["steps"][name] = {
+            "loss_rel": max(abs(x - y) / abs(y) for x, y in zip(ml, sl)),
+            "state_rel": worst}
+
+    # 4. the mesh step as CUDA graph replays: fit in one stack of three
+    # (the first step eager, the second captured, then replays) against
+    # three eager steps, under deterministic algorithms
+    def fitted(scan):
+        model, _ = build_network(conf.networks["class"], {
+            "conf": conf, "device": dev, "seed": 0})
+        t = Trainer(model, device=dev, mesh=mesh)
+        st = t.fit(batches, scan_steps=scan, verbose=False)["state"]
+        replays = sum(g["replays"] for g in t.graph_stats().get("train", []))
+        return {k: v.detach().cpu() for k, v in model.state_dict().items()
+                }, replays
+    eager, _ = fitted(1)
+    graphed, replays = fitted(3)
+    out["graphed"] = {"replays": replays, "bitwise": all(
+        torch.equal(eager[k], graphed[k]) for k in eager)}
+    dist.destroy_process_group()
+    print(json.dumps(out))
+''')
+
+
+@pytest.fixture(scope="module")
+def world_of_one():
+    """One process of a world of one over NCCL (a process of its own: the
+    group must not outlive these tests): the sharded gather, the sharded
+    searchers, three mesh steps, each beside its single-card counterpart,
+    and the mesh step graphed beside eager. Its JSON result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    root = os.path.abspath(tp.ROOT)
+    r = subprocess.run([sys.executable, "-c", _WORLD_OF_ONE, root,
+                        os.path.join(root, "conf", "demo_recall.yaml")],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    import json
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def test_nccl_world_of_one_sharded_gather_is_the_single_gather(world_of_one):
+    """At world 1 the masked gather keeps every row and the all-reduce is
+    an identity: rows and the bf16 table gradient bitwise the single
+    table's (deterministic algorithms: the duplicate sums in one order)."""
+    assert world_of_one["backend"] == "nccl"
+    assert world_of_one["gather"] == {"rows_bitwise": True,
+                                      "grad_bitwise": True}
+
+
+def test_nccl_world_of_one_sharded_search_is_the_resident_search(
+        world_of_one):
+    """300,000 x 128, 256 queries, k 100: the sharded Flat, SQbf16 and SQ8
+    top-100s against the resident ones: scores within 1e-5 relative, ids
+    equal but for at most 0.5% (the sharded tournament keeps k + 1 groups:
+    where the resident's k miss an item, the sharded finds it)."""
+    for spec, got in world_of_one["search"].items():
+        assert got["ids_equal"] >= 0.995, (spec, got)
+        assert got["score_rel"] <= 1e-5 or spec != "Flat", (spec, got)
+
+
+def test_nccl_world_of_one_mesh_step_graph_replays_equal_eager(
+        world_of_one):
+    """The mesh step's NCCL collectives capture into the step's CUDA graph:
+    a fit of three steps in one stack (replays > 0) bitwise the eager
+    fit's weights and buffers."""
+    got = world_of_one["graphed"]
+    assert got["replays"] > 0 and got["bitwise"], got
+
+
+def test_nccl_world_of_one_mesh_steps_match_the_single_card(world_of_one):
+    """Three Dssm steps on demo_recall at batch 256 (dropout reseeded per
+    step alike): replicated (split "auto") and row-sharded (legacy
+    "sparse") mesh steps against the single card's, losses and every
+    weight, buffer and accumulator within 1e-6 relative (BatchNorm's
+    moments from all-reduced sums over n where the single card takes
+    torch.mean)."""
+    for name, got in world_of_one["steps"].items():
+        assert got["loss_rel"] <= 1e-6 and got["state_rel"] <= 1e-6, \
+            (name, got)

@@ -8,8 +8,9 @@
   * the streaming AUC (`auc_init` / `auc_update` / `auc_result`) against
     the JAX functions over several batches, within 1e-6 (the same binned
     counts, f32 sums of the same terms in another order), and within 0.01
-    of the exact `roc_auc` at 200 thresholds; NaN for one class; the
-    `axis_name` of the parallel slice raises;
+    of the exact `roc_auc` at 200 thresholds; NaN for one class; an
+    `axis_name` without a mesh raises (tests/test_torch_match_axis.py
+    holds it over a mesh);
   * `spearman` equal to the JAX function (the same float64 arithmetic),
     ties included;
   * Mmoe's `migrate_legacy_params` on the legacy tree the JAX package's
@@ -122,7 +123,7 @@ def test_streaming_auc_one_class_and_axis_name(monkeypatch):
     from recommendflow_tpu_torch.train import metrics as tm
     s = tm.auc_update(tm.auc_init(device="cpu"), torch.ones(8), torch.rand(8))
     assert torch.isnan(tm.auc_result(s))
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(RuntimeError, match="no mesh"):
         tm.auc_update(tm.auc_init(device="cpu"), torch.ones(8), torch.rand(8),
                       axis_name="dp")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

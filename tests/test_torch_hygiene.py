@@ -71,7 +71,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "models/matching/mobius.py", "export/exporter.py",
                    "cli/export.py", "train/freq.py", "train/graphs.py",
                    "ops/cuda/launches.py", "encoder/simbert.py",
-                   "encoder/generators.py", "retrieval/host_tier.py"):
+                   "encoder/generators.py", "retrieval/host_tier.py",
+                   "parallel/distributed.py", "parallel/mesh.py",
+                   "parallel/sharded_embedding.py", "retrieval/sharded.py"):
         assert os.path.join("recommendflow_tpu_torch", module) in rel, module
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]

@@ -3,8 +3,9 @@ against the JAX package's on the CPU.
 
 * Every index string resolves to the port's counterpart of the class the
   JAX factory builds, with the same parameters, the host-tier strings
-  among them; `mesh=` raises NotImplementedError (ValueError on a
-  host-tier string, as in JAX).
+  among them; `mesh=` with something that is not a port Mesh raises
+  TypeError (ValueError on a host-tier string, as in JAX;
+  tests/test_torch_sharded_search.py drives the sharded searchers).
 * EncoderSearcher in DataFrame mode, with the port's TextEncoderService and
   the JAX one sharing weights through `interop` (the service parity of
   tests/test_torch_encoder_service.py): the same joined frame, sims within
@@ -63,8 +64,8 @@ def test_unported_strings_and_mesh_raise():
             assert getattr(t, attr, None) == getattr(j, attr, None), attr
         with pytest.raises(ValueError, match="host tier streams"):
             index_factory(16, spec, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        index_factory(16, "Flat", mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        index_factory(16, "Flat", mesh=object())
     with pytest.raises(ValueError, match="unsupported"):
         index_factory(16, "HNSW32", device="cpu")
     with pytest.raises(ValueError, match="not in"):

@@ -115,6 +115,8 @@ def test_config_names_resolve_to_the_port_and_axis_name_raises():
     assert fn is tm.batch_neg_sample_scaled_multi_class_ce_loss
     assert str2fn("cosent_loss") is tm.cosent_loss
     q, d, y, _, _ = _inputs()
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # axis_name names an axis of the current mesh (tests/
+    # test_torch_match_axis.py): without one it raises
+    with pytest.raises(RuntimeError, match="no mesh"):
         tm.batch_neg_sample_ce_loss(torch.from_numpy(y), torch.from_numpy(q),
                                     torch.from_numpy(d), axis_name="dp")

@@ -2,7 +2,8 @@
 demo_recall records saves a checkpoint; cli/predict and cli/evaluate on that
 checkpoint give the trained model's outputs (atol 1e-6: the same model on
 the same records) and finite metrics; --lr_schedule trains. --shard_tables
-needs the parallel slice and raises (--preempt_dir: test_torch_preempt.py)."""
+beside --no_mesh raises (the mesh runs: test_torch_dp_trainer.py;
+--preempt_dir: test_torch_preempt.py)."""
 import os
 
 import numpy as np
@@ -58,10 +59,12 @@ def test_predict_and_evaluate_on_the_trained_checkpoint(trained):
     assert metrics and all(np.isfinite(v) for v in metrics.values())
 
 
-@pytest.mark.parametrize("flag", [["--shard_tables"]])
+@pytest.mark.parametrize("flag", [["--shard_tables", "--no_mesh"]])
 def test_flags_of_later_slices_raise(flag):
+    """--shard_tables shards over a mesh, which --no_mesh refuses: the
+    combination raises before anything is built."""
     from recommendflow_tpu_torch.cli import train as cli
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no_mesh"):
         cli.main([tp.DEMO_CONF, "--device", "cpu", *flag])
 
 
