@@ -22,9 +22,24 @@ from recommendflow_tpu_torch.parallel.mesh import active_data_parallel
 def dice(x: torch.Tensor, axis: int = 0, alpha: float = 0.0,
          eps: float = 1e-9) -> torch.Tensor:
     """Dice activation (DIN): p·x + alpha·(1−p)·x with p = sigmoid of the
-    batch-standardized input (biased variance, as jnp.var)."""
-    mean = x.mean(dim=axis, keepdim=True)
-    var = x.var(dim=axis, keepdim=True, unbiased=False)
+    batch-standardized input (biased variance, as jnp.var).
+
+    Inside a `parallel.mesh.data_parallel` block the batch axis (axis 0)
+    is standardized over the GLOBAL batch, as GSPMD computes jnp.mean and
+    jnp.var over a dp-sharded batch: the mean is an all-reduced sum over
+    the global count, the variance a second all-reduced sum of
+    (x - mean)^2 (jnp.var's formula; differentiable collectives)."""
+    dp = active_data_parallel()
+    if dp is not None and axis % x.dim() == 0:
+        mesh, name = dp
+        group = mesh.group(name)
+        count = x.shape[0] * mesh.size(name)
+        mean = all_reduce_sum(x.sum(dim=0, keepdim=True), group) / count
+        var = all_reduce_sum(((x - mean) ** 2).sum(dim=0, keepdim=True),
+                             group) / count
+    else:
+        mean = x.mean(dim=axis, keepdim=True)
+        var = x.var(dim=axis, keepdim=True, unbiased=False)
     p = torch.sigmoid((x - mean) / torch.sqrt(var + eps))
     return p * x + alpha * (1.0 - p) * x
 

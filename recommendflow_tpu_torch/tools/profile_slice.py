@@ -30,7 +30,8 @@ the launches it listed) is counted at the kernel's median time alone on
 the same shapes (CUDA events, calls queued behind a sleep so host overhead
 stays out); one stream runs everything, so nothing overlaps.
 
-Prints one JSON line per part. Needs a card.
+Device time is read from each profile's Chrome trace by utils/trace.py,
+the port's one trace reader. Prints one JSON line per part. Needs a card.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ import time
 
 import numpy as np
 import torch
+
+from recommendflow_tpu_torch.utils.trace import profile_report
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -59,54 +62,30 @@ def median_ms(fn, reps: int = 20) -> float:
     return sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(reps))[reps // 2]
 
 
-def _device_stats(prof, wall_s: float, ours, top: int = 12):
-    """Busy time (union of the profiled device intervals, plus the time
-    alone of each launch of the port's kernels the profiler missed;
+def _device_stats(rep, wall_s: float, ours, top: int = 12):
+    """Busy time (the union of the profiled device intervals, plus the
+    time alone of each launch of the port's kernels the profiler missed;
     `ours` = {name: (kernel symbol, launches, ms alone)}), idle share and
-    the top device-time entries by name."""
-    spans, names = [], []
-    for e in prof.events():
-        # user annotations (e.g. Optimizer.step) span kernels and the gaps
-        # between them: they are not device work of their own
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and not getattr(e, "is_user_annotation", False):
-            spans.append((e.time_range.start, e.time_range.end))
-            names.append(e.name)
-    spans.sort()
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy_us += cur_e - cur_s
+    the top device-time entries by name. `rep` is the TraceReport of a
+    finished torch.profiler run (`profile_report(prof)`)."""
+    busy_ms, ops = rep.device_total_ms, rep.ops
     by_name, missed = [], {}
     for name, (symbol, launches, alone_ms) in ours.items():
-        seen = sum(symbol in n for n in names)
+        seen = sum(op.count for op in ops if symbol in op.key)
         n_missed = max(launches - seen, 0)
         missed[name] = {"launches": launches, "listed": seen,
                         "ms_alone": alone_ms}
-        busy_us += n_missed * alone_ms * 1e3
+        busy_ms += n_missed * alone_ms
         by_name.append((name + " (all launches x time alone)",
                         launches * alone_ms, launches))
-    for a in prof.key_averages():
-        if getattr(a, "device_type", None) != torch.autograd.DeviceType.CUDA \
-                or getattr(a, "is_user_annotation", False):
-            continue               # host ops: their kernels are listed apart
-        if any(symbol in a.key for symbol, _, _ in ours.values()):
+    for op in ops:
+        if any(symbol in op.key for symbol, _, _ in ours.values()):
             continue               # listed above from the launch count
-        t = getattr(a, "self_device_time_total", None)
-        if t is None:
-            t = getattr(a, "self_cuda_time_total", 0.0)
-        if t > 0:
-            by_name.append((a.key[:80], t / 1e3, a.count))
+        by_name.append((op.key[:80], op.total_ms, op.count))
     by_name.sort(key=lambda x: -x[1])
-    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
-            "idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
-            "device_events": len(spans), "port_kernels": missed,
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+            "device_events": rep.events, "port_kernels": missed,
             "top_ms": [{"name": n, "ms": t, "calls": c}
                        for n, t, c in by_name[:top]]}
 
@@ -241,7 +220,7 @@ def profile_training(model, dev, steps: int, batch: int = 1024,
             wall = time.perf_counter() - t0
         ours = {name: (sym, counters[name].launches, ms)
                 for name, (sym, ms) in alone.items()}
-        stats = _device_stats(prof, wall, ours)
+        stats = _device_stats(profile_report(prof), wall, ours)
         stats.update(mode=f"{mode}/{strategy}" if mode == "split" else mode,
                      steps=steps, per_step_wall_ms=wall / steps * 1e3,
                      per_step_device_ms=stats["device_busy_ms"] / steps,
@@ -281,7 +260,7 @@ def profile_encode(service, texts, batches: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     symbol, ms = alone["flash_attention"]
-    stats = _device_stats(prof, wall, {"flash_attention": (
+    stats = _device_stats(profile_report(prof), wall, {"flash_attention": (
         symbol, k_fa.flash_attention.launches, ms)})
     n_batches = -(-len(chunk) // bs)
     stats.update(batches=n_batches, batch_size=bs,
@@ -359,7 +338,7 @@ def main(argv=None) -> int:
         predict(model, batches, dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    stats = _device_stats(prof, wall, {"gather_rows": (
+    stats = _device_stats(profile_report(prof), wall, {"gather_rows": (
         "gather_rows_kernel", k_rows.gather_rows.launches, rows_alone)})
     stats.update(per_batch_wall_ms=wall / args.batches * 1e3,
                  per_batch_device_ms=stats["device_busy_ms"] / args.batches)
@@ -383,7 +362,7 @@ def main(argv=None) -> int:
         searcher.search(qv, topk=100)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    stats = _device_stats(prof, wall, {"grouped_score_max": (
+    stats = _device_stats(profile_report(prof), wall, {"grouped_score_max": (
         "grouped_score_max_kernel", k_scan.grouped_score_max.launches, scan_alone)})
     stats.update(corpus_items=searcher.num_items,
                  n_pad=int(searcher._vecs.shape[0]), queries=len(qv))

@@ -25,7 +25,9 @@ Under a row-sharded mesh (parallel/sharded_embedding.py) a checkpoint
 always holds whole tables and accumulators: each rank's block is gathered
 before the save (a collective every rank calls; in a run of several
 processes rank 0 writes and the others wait at a barrier), and a restore
-cuts each whole table to the block the restoring rank holds. So a
+cuts each whole table to the block the restoring rank holds. The same
+holds for the optimizer's per-row state of a block (torch's Adam moments,
+an `OptaxOptimizer`'s moments and accumulators). So a
 checkpoint written at one world size, sharded or not, restores at any
 other.
 """
@@ -42,6 +44,7 @@ import torch
 from recommendflow_tpu_torch.parallel.distributed import host_id, num_hosts
 from recommendflow_tpu_torch.parallel.sharded_embedding import (
     full_rows, gather_like, own_rows)
+from recommendflow_tpu_torch.train.optimizers import OptaxOptimizer
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 # the key of a param group's LR as the host last wrote it, beside an LR that
@@ -86,13 +89,18 @@ def state_to_host(state) -> Dict[str, Any]:
 
 
 def _optimizer_rows(opt, sd: Dict[str, Any], fn) -> Dict[str, Any]:
-    """A torch optimizer's state dict `sd` with `fn(param, tensor)` applied
-    to each per-row tensor of its parameters (an Adam moment of an expert
-    block): gather_like to save whole, own_rows to restore a block. Other
-    optimizers' state dicts pass as they are."""
-    if not isinstance(opt, torch.optim.Optimizer):
+    """An optimizer's state dict `sd` with `fn(param, tensor)` applied to
+    each per-row tensor of its parameters (an Adam moment of an expert
+    block, a table block's accumulator): gather_like to save whole,
+    own_rows to restore a block. A torch optimizer keys its state by
+    parameter index, an `OptaxOptimizer` by parameter name."""
+    if isinstance(opt, torch.optim.Optimizer):
+        params = dict(enumerate(p for g in opt.param_groups
+                                for p in g["params"]))
+    elif isinstance(opt, OptaxOptimizer):
+        params = opt.params
+    else:
         return sd
-    params = [p for g in opt.param_groups for p in g["params"]]
     state = {i: {k: fn(params[i], v) if isinstance(v, torch.Tensor)
                  and v.dim() >= 1 else v for k, v in st.items()}
              for i, st in sd["state"].items()}
@@ -107,11 +115,11 @@ def load_state(state, saved: Dict[str, Any]):
     params = dict(state.model.named_parameters())
     state.model.load_state_dict({k: own_rows(params[k], v) if k in params
                                  else v for k, v in saved["model"].items()})
+    opt_sd = _optimizer_rows(state.optimizer, saved["optimizer"], own_rows)
     if isinstance(state.optimizer, torch.optim.Optimizer):
-        load_torch_optimizer(state.optimizer, _optimizer_rows(
-            state.optimizer, saved["optimizer"], own_rows))
+        load_torch_optimizer(state.optimizer, opt_sd)
     else:
-        state.optimizer.load_state_dict(saved["optimizer"])
+        state.optimizer.load_state_dict(opt_sd)
     if sorted(saved["table_acc"]) != sorted(state.table_acc):
         raise KeyError(f"accumulators {sorted(saved['table_acc'])} do not "
                        f"match the state's {sorted(state.table_acc)}")

@@ -45,6 +45,7 @@ from recommendflow_tpu_torch.ops.cuda.embedding_bag import (
 from recommendflow_tpu_torch.ops.cuda.sparse_apply import sparse_adagrad_apply
 from recommendflow_tpu_torch.ops.cuda.table_update import (
     rowwise_adagrad_update)
+from recommendflow_tpu_torch.parallel.distributed import all_reduce_nograd
 
 # the Adagrad accumulator seed, shared by every table-update path
 ADAGRAD_INIT_ACCUMULATOR = 0.1
@@ -294,6 +295,16 @@ class OptaxOptimizer:
     Partitioned: the stacked tables take rowwise_adagrad_update at the
     fixed table LR instead (accumulators [R, 1] f32 from 0.1).
 
+    On a mesh a parameter may hold one block of its leading axis (a table
+    under `shard_tables`, an expert leaf under `shard_experts`: marked
+    `row_shard` by parallel/sharded_embedding.py:mark_row_shard), and its
+    state the same rows. The norms are those of the whole parameter, as
+    XLA computes them over the global array: a block's sum of squares is
+    all-reduced over its shard axis (one collective per axis for the
+    global norm, one per block leaf for lamb's |p| and |u|; a CUDA graph of
+    the step captures them with its other collectives), and a replicated
+    leaf counts once. Without a marked parameter no collective runs.
+
     `param_groups[0]["lr"]` is optax's injected learning rate: a schedule
     re-derives it from the update count before each update (so rewriting
     it has no effect then), a fixed rate keeps what is written there.
@@ -362,8 +373,10 @@ class OptaxOptimizer:
         spec = self.spec
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in self.params.items()}
+        shards = {n: s for n, p in self.params.items()
+                  if (s := getattr(p, "row_shard", None)) is not None}
         if spec.clip_norm > 0:
-            grads = _clip_by_global_norm(grads, spec.clip_norm)
+            grads = _clip_by_global_norm(grads, spec.clip_norm, shards)
         neg_lr = -self._lr
         for n, p in self.params.items():
             g, st = grads[n], self.state.get(n)
@@ -371,11 +384,12 @@ class OptaxOptimizer:
                 rowwise_adagrad_update(p.detach(), st["acc"], g,
                                        lr=spec.table_learning_rate)
                 continue
-            u = self._direction(g, p, st)
+            u = self._direction(g, p, st, shards.get(n))
             p.copy_((p.float() + u.float() * neg_lr).to(p.dtype))
 
     def _direction(self, g: torch.Tensor, p: torch.Tensor,
-                   st: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
+                   st: Optional[Dict[str, torch.Tensor]],
+                   shard=None) -> torch.Tensor:
         """The update before the learning rate, in optax's order."""
         name = self.spec.name
         if name == "sgd":
@@ -399,8 +413,14 @@ class OptaxOptimizer:
         if name in ("adamw", "lamb"):
             u = u + self.spec.weight_decay * p
         if name == "lamb":
-            pn = torch.linalg.vector_norm(p)
-            un = torch.linalg.vector_norm(u)
+            if shard is None:
+                pn = torch.linalg.vector_norm(p)
+                un = torch.linalg.vector_norm(u)
+            else:       # the whole leaf's norms, from every block's
+                sq = all_reduce_nograd(torch.stack(
+                    [p.float().square().sum(), u.float().square().sum()]),
+                    shard.mesh.group(shard.axis))
+                pn, un = torch.sqrt(sq).to(p.dtype).unbind(0)
             ratio = torch.where((pn == 0) | (un == 0),
                                 torch.ones_like(pn), pn / un)
             u = u * ratio
@@ -422,13 +442,25 @@ class OptaxOptimizer:
                     self.state[n][k].copy_(v)
 
 
-def _clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
+def _clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                         shards: Optional[Dict[str, object]] = None
                          ) -> Dict[str, torch.Tensor]:
     """optax.clip_by_global_norm: each leaf's sum of squares in its dtype,
     the global norm in f32; where it is >= max_norm every leaf becomes
-    (g / norm) * max_norm, the norm cast to the leaf's dtype."""
-    sq = [torch.sum(g * g).float() for g in grads.values()]
-    norm = torch.sqrt(torch.stack(sq).sum())
+    (g / norm) * max_norm, the norm cast to the leaf's dtype. `shards`
+    {name: RowShard} names the leaves that hold one block of a row-sharded
+    parameter: their sums are all-reduced over each shard axis (one
+    collective per axis) before the global sum."""
+    sq = {n: torch.sum(g * g).float() for n, g in grads.items()}
+    by_axis: Dict[Tuple[int, str], list] = {}
+    for n, s in (shards or {}).items():
+        by_axis.setdefault((id(s.mesh), s.axis), []).append(n)
+    for names in by_axis.values():
+        s = shards[names[0]]
+        total = all_reduce_nograd(torch.stack([sq[n] for n in names]),
+                                  s.mesh.group(s.axis))
+        sq.update(zip(names, total.unbind(0)))
+    norm = torch.sqrt(torch.stack(list(sq.values())).sum())
     keep = norm < max_norm
     return {n: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
             for n, g in grads.items()}

@@ -450,6 +450,14 @@ def table_params(model: torch.nn.Module) -> Dict[int, torch.nn.Parameter]:
             if (m := _TABLE.search(name))}
 
 
+def _row_grad(rows: torch.Tensor) -> torch.Tensor:
+    """The gradient of a split gather's rows: zeros where the loss did not
+    reach them (a model whose fields leave a table's slots out, as Cold's
+    field stack leaves out every slot of another width), as JAX's
+    cotangent of an unused input is."""
+    return rows.grad if rows.grad is not None else torch.zeros_like(rows)
+
+
 class Trainer:
     """Trainer of one model on one device.
 
@@ -764,8 +772,9 @@ class Trainer:
                              batch: Optional[Dict[str, torch.Tensor]] = None
                              ) -> None:
         """`_apply_row_grads` with the split path's gathered rows, whose
-        .grad holds the row gradients."""
-        self._apply_row_grads(state, phys, {d: r.grad for d, r in rows.items()},
+        .grad holds the row gradients (`_row_grad`)."""
+        self._apply_row_grads(state, phys,
+                              {d: _row_grad(r) for d, r in rows.items()},
                               batch)
 
     def _apply_row_grads(self, state: TrainState,
@@ -868,8 +877,8 @@ class Trainer:
         phys = {d: all_gather_nograd(v, group) for d, v in phys.items()}
         row_grads = {}
         for d, r in rows.items():
-            g = r.grad if others == "none" else \
-                all_reduce_nograd(r.grad, others)
+            g = _row_grad(r) if others == "none" else \
+                all_reduce_nograd(_row_grad(r), others)
             row_grads[d] = all_gather_nograd(g, group) / world
         if self._sparse_dims:      # the touched rows of the global batch
             schema = self.model.schema

@@ -379,3 +379,98 @@ def dp_predict(rank, world, batches, shard):
     local = [shard_batch(t.mesh, b) for b in batches]
     state = t.init_state(local[0])
     return t.predict(state, local), t.evaluate(state, local)
+
+
+# --------------------------------- a chosen optimizer and dice on a mesh
+def _whole_state(state):
+    """The model's whole weights and buffers (row blocks gathered) as a
+    flax variable tree of numpy arrays, and the optimizer's whole state
+    (state_to_host's)."""
+    import ml_dtypes
+    from recommendflow_tpu_torch import interop
+    from recommendflow_tpu_torch.train.checkpoint import state_to_host
+    host = state_to_host(state)
+    return (interop.jax_from_variables(host["model"], ml_dtypes.bfloat16),
+            {n: {k: _np(v) for k, v in st.items()}
+             for n, st in host["optimizer"]["state"].items()})
+
+
+def mesh_model_trainer(path, kw, conf_path, networks, variables, opt,
+                       mesh=None, shard_tables=False, shard_experts=False):
+    """A model built from `path` on `conf_path` (Networks overrides
+    `networks`), carrying the flax `variables`, under a Trainer with the
+    chosen optimizer `opt` ({"partitioned": bool, **make_*_optimizer
+    kwargs}, or None for the default) on `mesh`."""
+    from recommendflow_tpu_torch import interop
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.models.base import build_network
+    from recommendflow_tpu_torch.train.optimizers import (
+        make_optimizer, make_partitioned_optimizer)
+    from recommendflow_tpu_torch.train.trainer import Trainer
+    conf = Configuration(conf_path)
+    conf.networks.update(networks)
+    model, _ = build_network(path, {"conf": conf, "device": "cpu", **kw})
+    interop.load_jax_variables(model, variables)
+    spec = None
+    if opt is not None:
+        opt = dict(opt)
+        make = make_partitioned_optimizer if opt.pop("partitioned", False) \
+            else make_optimizer
+        spec = make(**opt)
+    extra = {} if spec is None else {"optimizer": spec}
+    return Trainer(model, learning_rate=1e-3, table_update="split",
+                   split_strategy="sparse_set", device="cpu", seed=0,
+                   mesh=mesh, shard_tables=shard_tables,
+                   shard_experts=shard_experts, **extra)
+
+
+def mesh_model_steps(rank, world, path, kw, conf_path, networks, variables,
+                     opt, batches, axes, shape, shard_tables=False,
+                     shard_experts=False):
+    """Steps of this rank's dp rows of each global batch from the carried
+    flax variables on a mesh of `axes` x `shape`: (losses, the whole
+    variables after the steps, the row blocks' shapes, the replicas'
+    digests)."""
+    from recommendflow_tpu_torch.parallel.mesh import shard_batch
+    mesh = make_mesh(axes, shape)
+    t = mesh_model_trainer(path, kw, conf_path, networks, variables, opt,
+                           mesh, shard_tables, shard_experts)
+    local = [shard_batch(mesh, b) for b in batches]
+    state = t.init_state(local[0])
+    losses = []
+    for b in local:
+        state, m = t.train_step(state, b)
+        losses.append(float(m["loss"]))
+    blocks = {n: tuple(p.shape) for n, p in t.model.named_parameters()
+              if getattr(p, "row_shard", None) is not None}
+    digests = {n: _digest(p) for n, p in t.model.named_parameters()
+               if getattr(p, "row_shard", None) is None}
+    return losses, _whole_state(state)[0], blocks, digests
+
+
+def mesh_model_ckpt(rank, world, path, kw, conf_path, networks, variables,
+                    opt, batches, axes, shape, shard_tables, shard_experts,
+                    file, steps_before, mode):
+    """mode 'save': `steps_before` steps of the global batches, save to
+    `file`, then the rest; mode 'resume': restore `file` into a fresh
+    trainer and take the rest. Returns (the whole optimizer state right
+    after the save or the restore, the whole variables and optimizer state
+    at the end, the step)."""
+    from recommendflow_tpu_torch.parallel.mesh import shard_batch
+    from recommendflow_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                          save_checkpoint)
+    mesh = make_mesh(axes, shape)
+    t = mesh_model_trainer(path, kw, conf_path, networks, variables, opt,
+                           mesh, shard_tables, shard_experts)
+    local = [shard_batch(mesh, b) for b in batches]
+    state = t.init_state(local[0])
+    if mode == "save":
+        for b in local[:steps_before]:
+            state, _ = t.train_step(state, b)
+        save_checkpoint(file, state)
+    else:
+        restore_checkpoint(file, state)
+    at = _whole_state(state)[1]
+    for b in local[steps_before:]:
+        state, _ = t.train_step(state, b)
+    return at, _whole_state(state), state.step

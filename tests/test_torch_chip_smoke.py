@@ -8,7 +8,8 @@ gradient check, SiameseEncoder's text_recall run with its graft and
 gradient checks, SimBERT's training on the UniLM mask with its causality
 and gradient checks, the other matching models, the export and /predict
 serving of Dcn, TabTransformer and Dssm, the quantized and approximate
-searchers, the host-RAM tier's streamed and IVF searches, the text encoder's encode and HTTP serving, the text search, the
+searchers, the host-RAM tier's streamed and IVF searches, the recall ->
+rank cascade, the text encoder's encode and HTTP serving, the text search, the
 CLIs with cli/export and cli/serve --model, and the dispatch phase's stacks
 of steps, a preemption inside a stack and the served exports)."""
 import json
@@ -29,7 +30,7 @@ REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "long_runs", "dispatch", "ranking_zoo",
              "attention_ranking", "text_recall", "simbert", "matching_zoo",
              "export_serve", "sq_search", "ann", "host_tier", "parallel",
-             "encode", "serve", "text_search", "cli")
+             "cascade", "encode", "serve", "text_search", "cli")
 
 
 def _run(args, cwd):
@@ -87,6 +88,10 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
         if name != "replicated_graphed":
             assert check["loss_rel_err"] <= par["tolerance"]
     assert sorted(par["search"]["checks"]) == ["Flat", "SQ8", "SQbf16"]
+    cas = phases["cascade"]         # the recall -> rank cascade, demo size
+    assert cas["stage2"]["hit@50"] == cas["stage1"]["hit@50"]
+    assert cas["topk_check"]["score_rel_err"] <= 4e-6
+    assert sorted(cas["seconds"]) == sorted(cas["launches_by_stage"])
     assert phases["gather_rows"]["bitwise_equal"] is True
     assert max(phases["grouped_score_max"]["max_abs_err"].values()) <= 1e-4
     assert {"u8_ip", "u8_l2"} <= set(phases["grouped_score_max"]["max_abs_err"])

@@ -1613,6 +1613,30 @@ def test_graphed_steps_launch_counts_and_no_host_wait(cuda):
         assert got[k] == want, (k, got[k], want)
 
 
+def test_the_trace_reader_lists_kernel_1_of_graphed_steps(cuda, tmp_path):
+    """utils/trace.py on a real card trace: three graphed steps (replays of
+    a captured step) under utils/profiling.py:trace; the trace lists kernel
+    1's symbol as often as its launch counter says, and the card's busy
+    time lies inside the trace's span."""
+    from recommendflow_tpu_torch.ops.cuda import embedding_bag
+    from recommendflow_tpu_torch.utils.profiling import trace
+    from recommendflow_tpu_torch.utils.trace import parse_trace
+    batches = tp.demo_batches(5, seed=94, batch=128).batches
+    t = tp.demo_trainer(_DISPATCH_NETS, device=cuda)
+    s = t.init_state(batches[0])
+    s, _ = t.train_steps(s, batches[:2])              # eager, then captured
+    torch.cuda.synchronize()
+    before = embedding_bag.gather_rows.launches
+    with trace(str(tmp_path / "prof")):
+        s, _ = t.train_steps(s, batches[2:])          # three replays
+    launched = embedding_bag.gather_rows.launches - before
+    rep = parse_trace(str(tmp_path / "prof"))
+    listed = sum(op.count for op in rep.ops if "gather_rows_kernel" in op.key)
+    assert launched > 0 and listed == launched, (listed, launched)
+    assert 0 < rep.device_total_ms <= rep.span_ms
+    assert t.graph_stats()["train"][0]["replays"] >= 3
+
+
 _CAPTURE_FAILS = r"""
 import sys
 sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[1] + "/tests")

@@ -30,7 +30,8 @@ def _port_sources():
     files = sorted(f for f in glob.glob(os.path.join(pkg, "**", "*.py"),
                                         recursive=True)
                    if not f.startswith(build))
-    return files + [os.path.join(ROOT, "chip_smoke.py")]
+    return files + [os.path.join(ROOT, "chip_smoke.py"),
+                    os.path.join(ROOT, "examples", "cascade_demo_torch.py")]
 
 
 def _imported_modules(path):
@@ -73,7 +74,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "ops/cuda/launches.py", "encoder/simbert.py",
                    "encoder/generators.py", "retrieval/host_tier.py",
                    "parallel/distributed.py", "parallel/mesh.py",
-                   "parallel/sharded_embedding.py", "retrieval/sharded.py"):
+                   "parallel/sharded_embedding.py", "retrieval/sharded.py",
+                   "version.py", "config/json_config.py",
+                   "cli/make_records.py", "cli/show_records.py",
+                   "utils/dataprep.py", "utils/hdfs.py", "utils/trace.py"):
         assert os.path.join("recommendflow_tpu_torch", module) in rel, module
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
@@ -115,7 +119,23 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pred_cli.main([tp.DEMO_CONF, "--data", str(tmp_path / "*.rfb"),
                        "--out", str(tmp_path / "o.npz")])
+    demo = _cascade_demo()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo.main(data_dir=str(tmp_path / "cascade"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo.cli([])
+    assert not os.path.exists(str(tmp_path / "cascade"))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _cascade_demo():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "cascade_demo_torch",
+        os.path.join(ROOT, "examples", "cascade_demo_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_matching_models_raise_without_a_card(monkeypatch):
