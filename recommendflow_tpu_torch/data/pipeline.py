@@ -33,6 +33,7 @@ from recommendflow_tpu_torch.data.hashing import hash_bucket_array
 from recommendflow_tpu_torch.data.schema import (
     PAD_ID, BatchSchema, FeatureSlot, compile_schema, encode_discrete, encode_lookup,
 )
+from recommendflow_tpu_torch.utils.profiling import spanned
 from recommendflow_tpu_torch.utils.str_parser import str2dayno
 
 Batch = Dict[str, np.ndarray]
@@ -472,7 +473,9 @@ def prefetch(it: Iterable[Batch], size: int = 2) -> Iterator[Batch]:
 
     def worker():
         try:
-            for item in it:
+            # each item drawn (the batches' decode and checks, fit's
+            # stacking) is a span of this thread
+            for item in spanned(it, "prefetch.produce"):
                 if not _put(item):
                     return
         except BaseException as e:  # propagate into consumer

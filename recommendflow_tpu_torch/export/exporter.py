@@ -39,6 +39,7 @@ import os
 import threading
 import zipfile
 from collections import Counter
+from contextlib import nullcontext
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -52,6 +53,7 @@ from recommendflow_tpu_torch.data.schema import check_ids_in_range
 from recommendflow_tpu_torch.device import resolve_device
 from recommendflow_tpu_torch.train.graphs import StepGraph
 from recommendflow_tpu_torch.train.trainer import to_device
+from recommendflow_tpu_torch.utils.profiling import span
 
 MAGIC = "RFX-TORCH1"
 META_FILE = "recflow_meta.json"
@@ -230,31 +232,38 @@ class ServingModel:
         the exported shapes; cast to the exported dtypes), as numpy. Raises
         KeyError for a missing input, ValueError for a wrong shape or an
         embedding id outside its table (checked on the host, before the
-        copy), TypeError for sparse ids that are not integers."""
-        missing = [k for k in self.batch_keys if k not in batch]
-        if missing:
-            raise KeyError(f"export expects inputs {self.batch_keys}; "
-                           f"missing {missing}")
-        arrays = {}
-        for k in self.batch_keys:
-            arr = np.asarray(batch[k])
-            want = tuple(self.meta["shapes"][k])
-            if arr.shape != want:
-                raise ValueError(f"input '{k}': shape {arr.shape} != "
-                                 f"exported {want}")
-            arrays[k] = arr
-        try:
-            check_ids_in_range(self.meta["id_rows"], arrays)
-        except IndexError as e:
-            raise ValueError(str(e)) from None
-        host = {k: arrays[k].astype(self.meta["dtypes"][k], copy=False)
-                for k in self.batch_keys}
-        with torch.no_grad():
-            if self.graph is None:
-                out = self._run(to_device(host, self.device))
-                return _to_numpy(out)
-            with self._lock:      # one set of static buffers
-                return _to_numpy(self.graph(self._run, host))
+        copy), TypeError for sparse ids that are not integers. Spans:
+        `serve.predict`, `serve.check` (the inputs and their ids),
+        `serve.cast`, `serve.fetch` (the outputs to the host)."""
+        with span("serve.predict"):
+            with span("serve.check"):
+                missing = [k for k in self.batch_keys if k not in batch]
+                if missing:
+                    raise KeyError(f"export expects inputs {self.batch_keys}; "
+                                   f"missing {missing}")
+                arrays = {}
+                for k in self.batch_keys:
+                    arr = np.asarray(batch[k])
+                    want = tuple(self.meta["shapes"][k])
+                    if arr.shape != want:
+                        raise ValueError(f"input '{k}': shape {arr.shape} != "
+                                         f"exported {want}")
+                    arrays[k] = arr
+                try:
+                    check_ids_in_range(self.meta["id_rows"], arrays)
+                except IndexError as e:
+                    raise ValueError(str(e)) from None
+            with span("serve.cast"):
+                host = {k: arrays[k].astype(self.meta["dtypes"][k], copy=False)
+                        for k in self.batch_keys}
+            # a graph has one set of static buffers: its outputs are read
+            # back before the next call replays it
+            guard = self._lock if self.graph is not None else nullcontext()
+            with torch.no_grad(), guard:
+                out = self._run(to_device(host, self.device)) \
+                    if self.graph is None else self.graph(self._run, host)
+                with span("serve.fetch"):
+                    return _to_numpy(out)
 
 
 def _to_numpy(out) -> Dict[str, np.ndarray]:

@@ -35,6 +35,7 @@ from recommendflow_tpu_torch.retrieval._kernels import (
     NEG, _DISTANCE_METRICS, _GROUP, _SUPERGROUP, _l2_from_surrogate,
     _l2_normalize, _make_pairwise_distance, _to_host, _tournament_select,
     resolve_metric)
+from recommendflow_tpu_torch.utils.profiling import span
 
 # the [Qb, nb, D] f32 temporary of a distance block stays under ~256 MB
 _DISTANCE_TEMP_ELEMS = 1 << 26
@@ -217,38 +218,48 @@ class FlatSearcher:
         max(topk) and sliced per k.
 
         Returns (items, scores, indices) numpy arrays [Q, k] (dicts by k for
-        a list); items omitted when return_items=False."""
+        a list); items omitted when return_items=False. Spans: `search`,
+        `search.normalise`, then per query block
+        `search.copy_in` and `search.launch`, `search.fetch` (the results
+        to the host) and `search.items`."""
         if self._is_empty():
             raise RuntimeError("searcher is empty — call train(vectors) first")
         ks = sorted({int(k) for k in (topk if isinstance(topk, (list, tuple))
                                       else [topk])})
         k_max = min(max(ks), self.num_items)
-        queries = np.asarray(queries, np.float32)
-        if queries.ndim == 1:
-            queries = queries[None, :]
-        if self.metric == "cos":
-            queries = _l2_normalize(queries)
-        fn = self._search_fn.get(k_max)
-        if fn is None:
-            fn = self._search_fn[k_max] = self._build_search(k_max)
+        with span("search"):
+            with span("search.normalise"):
+                queries = np.asarray(queries, np.float32)
+                if queries.ndim == 1:
+                    queries = queries[None, :]
+                if self.metric == "cos":
+                    queries = _l2_normalize(queries)
+            fn = self._search_fn.get(k_max)
+            if fn is None:
+                fn = self._search_fn[k_max] = self._build_search(k_max)
 
-        scores, idx = [], []
-        with torch.no_grad():
-            for start in range(0, len(queries), self.query_block):
-                q = torch.from_numpy(
-                    queries[start:start + self.query_block]).to(self.device)
-                s, i = fn(q)
-                scores.append(s)
-                idx.append(i)
-        scores = torch.cat(scores).cpu().numpy()
-        idx = torch.cat(idx).cpu().numpy()
+            scores, idx = [], []
+            with torch.no_grad():
+                for start in range(0, len(queries), self.query_block):
+                    with span("search.copy_in"):
+                        q = torch.from_numpy(queries[
+                            start:start + self.query_block]).to(self.device)
+                    with span("search.launch"):
+                        s, i = fn(q)
+                    scores.append(s)
+                    idx.append(i)
+            with span("search.fetch"):
+                scores = torch.cat(scores).cpu().numpy()
+                idx = torch.cat(idx).cpu().numpy()
 
-        def slice_k(arr):
-            return arr if len(ks) == 1 else {k: arr[:, :k] for k in ks}
+            def slice_k(arr):
+                return arr if len(ks) == 1 else {k: arr[:, :k] for k in ks}
 
-        if return_items and self.items is not None:
-            return slice_k(self.items[idx]), slice_k(scores), slice_k(idx)
-        return slice_k(scores), slice_k(idx)
+            if return_items and self.items is not None:
+                with span("search.items"):
+                    items = slice_k(self.items[idx])
+                return items, slice_k(scores), slice_k(idx)
+            return slice_k(scores), slice_k(idx)
 
     # ------------------------------------------------------------- persist
     def save(self, path: str):

@@ -38,9 +38,16 @@ private pool (its activations and gradients) lives as long as the graph:
 
 Launch counts: a replay calls no kernel wrapper, so the capture's counts
 (`ops/cuda/launches.py`) are taken back and added again at every replay.
+
+Spans (utils/profiling.py, recorded while a profiler runs): `graph.copy_in`,
+`graph.eager`, `graph.capture` and `graph.replay`, whose start and mark
+(the host's time just after the graph's launch returned) bracket the
+launch. So a capture or an eager first run inside a traced stretch shows by
+name.
 """
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Set, Tuple
@@ -50,6 +57,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from recommendflow_tpu_torch.ops.cuda import launches
+from recommendflow_tpu_torch.utils.profiling import span
 
 Signature = Tuple[Tuple[str, Tuple[int, ...], torch.dtype], ...]
 
@@ -160,21 +168,31 @@ class StepGraph:
         sig = signature(tensors)
         entry = self._entries.get(sig)
         if entry is None:
-            inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
-                      for k, v in tensors.items()}
-            copy_in(inputs, tensors)
+            with span("graph.copy_in"):
+                inputs = {k: torch.empty(v.shape, dtype=v.dtype,
+                                         device=self.device)
+                          for k, v in tensors.items()}
+                copy_in(inputs, tensors)
             if sig not in self._seen:
                 self._seen.add(sig)
-                side = self._side_stream()
-                side.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(side):
-                    out = fn(inputs)
-                torch.cuda.current_stream(self.device).wait_stream(side)
+                with span("graph.eager"):
+                    side = self._side_stream()
+                    side.wait_stream(torch.cuda.current_stream(self.device))
+                    with torch.cuda.stream(side):
+                        out = fn(inputs)
+                    torch.cuda.current_stream(self.device).wait_stream(side)
                 return out
-            entry = self._entries[sig] = self._capture(inputs, fn)
+            with span("graph.capture"):
+                entry = self._entries[sig] = self._capture(inputs, fn)
         else:
-            copy_in(entry.inputs, tensors)
-        entry.graph.replay()
+            with span("graph.copy_in"):
+                copy_in(entry.inputs, tensors)
+        # the span's start and its mark, the host's time just after the
+        # launch returned, bracket the replay's cudaGraphLaunch: a trace
+        # reader puts the host's clock on the trace's from them
+        with span("graph.replay") as sp:
+            entry.graph.replay()
+            sp.mark()
         entry.replays += 1
         launches.add(entry.launches)
         return entry.outputs
@@ -191,6 +209,11 @@ class StepGraph:
         before = launches.snapshot()
         last = _LastOp()
         t0 = time.perf_counter()
+        # no garbage collection inside the capture: a dead cycle that holds
+        # another CUDA graph (a discarded trainer's) would destroy it there,
+        # a call the capture forbids, and the capture would fail
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=side):
                 with last:
@@ -201,6 +224,8 @@ class StepGraph:
                 f"{self.name}: capturing a CUDA graph failed at "
                 f"{last.last}: {type(first).__name__}: {first}") from e
         finally:
+            if collecting:
+                gc.enable()
             # the capture launched nothing on the card: a replay does
             captured = launches.difference(launches.snapshot(), before)
             launches.add(captured, -1)

@@ -153,7 +153,9 @@ from recommendflow_tpu_torch.train.optimizers import (
 from recommendflow_tpu_torch.train.optimizers import (  # noqa: F401
     make_optimizer, make_partitioned_optimizer)
 from recommendflow_tpu_torch.utils.logger import get_logger
-from recommendflow_tpu_torch.utils.profiling import start_trace, stop_trace
+from recommendflow_tpu_torch.utils.profiling import (mark_phase, span,
+                                                     spanned, start_trace,
+                                                     stop_trace)
 from recommendflow_tpu_torch.utils.tables import print_table
 
 log = get_logger("recflow.trainer")
@@ -251,18 +253,22 @@ def predict(model: torch.nn.Module, dataset: Iterable[Mapping[str, np.ndarray]],
     (data.pipeline.prefetch) while the card runs; outputs stay on the
     device until the end, so the host does not wait on the card batch by
     batch. With a `mesh` each rank passes its own batches and every rank
-    returns the global outputs (`gather_outputs`)."""
+    returns the global outputs (`gather_outputs`). Spans: `predict`,
+    `predict.prefetch` (each wait on the thread, its start in the first),
+    `predict.fetch` (the outputs to the host)."""
     dev = resolve_device(device)
     if graph is None and dev.type == "cuda":
         graph = StepGraph(dev, "predict")
     model.eval()
     chunks: Dict[str, List[torch.Tensor]] = {}
-    with torch.no_grad():
-        for batch in prefetch(checked_batches(model, dataset)):
+    with torch.no_grad(), span("predict"):
+        for batch in spanned(prefetch(checked_batches(model, dataset)),
+                             "predict.prefetch"):
             out = gather_outputs(eval_outputs(model, batch, dev, graph), mesh)
             for k, v in out.items():
                 chunks.setdefault(k, []).append(v)
-    return {k: torch.cat(v).cpu().numpy() for k, v in chunks.items()}
+        with span("predict.fetch"):
+            return {k: torch.cat(v).cpu().numpy() for k, v in chunks.items()}
 
 
 def gather_outputs(out: Dict[str, torch.Tensor], mesh: Optional[Mesh],
@@ -739,9 +745,12 @@ class Trainer:
         model = self.model
         model.train()
         model.zero_grad(set_to_none=True)
+        mark_phase(self.device, "gather")
         phys, rows = self.split_rows(batch)
+        mark_phase(self.device, "forward")
         loss, aux = model({**batch,
                            **{rows_key(d): r for d, r in rows.items()}})
+        mark_phase(self.device, "backward")
         loss.backward()
         return loss, aux, phys, rows
 
@@ -833,41 +842,52 @@ class Trainer:
         """What the host decides for step `state.step`, before its device
         work: the dropout reseed, the schedule's LR and, for a chosen
         optimizer, its update count and LR (written to the card)."""
-        device_generator(self.device).manual_seed(
-            step_seed(state.seed, state.step))
-        if self.lr_schedule is not None:
-            set_learning_rate(state, float(self.lr_schedule(state.step)))
-        if isinstance(state.optimizer, OptaxOptimizer):
-            state.optimizer.prepare()
+        with span("fit.host_step"):
+            device_generator(self.device).manual_seed(
+                step_seed(state.seed, state.step))
+            if self.lr_schedule is not None:
+                set_learning_rate(state, float(self.lr_schedule(state.step)))
+            if isinstance(state.optimizer, OptaxOptimizer):
+                state.optimizer.prepare()
 
     def _device_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
         """The step's device work, which a CUDA graph captures: forward,
-        backward, the dense update and the table updates. Returns the
-        metrics as device scalars."""
+        backward, the dense update and the table updates, each phase
+        started by its marker (`mark_phase`: gather, forward, backward,
+        optimizer, table_update, then end). Returns the metrics as device
+        scalars."""
         if self.mesh is not None:
             return self._mesh_device_step(state, batch)
         loss, aux, phys, rows = self._forward_backward(batch)
+        mark_phase(self.device, "optimizer")
         if isinstance(state.optimizer, OptaxOptimizer):
             state.optimizer.apply()
         else:
             state.optimizer.step()
+        mark_phase(self.device, "table_update")
         self._apply_table_updates(state, phys, rows, batch)
+        mark_phase(self.device, "end")
         return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
 
     def _mesh_device_step(self, state: TrainState,
                           batch: Dict[str, torch.Tensor]
                           ) -> Dict[str, torch.Tensor]:
-        """The data-parallel step on this rank's rows (module docstring)."""
+        """The data-parallel step on this rank's rows (module docstring),
+        with `_device_step`'s phase markers: the gradients' all-reduce
+        falls in the backward phase, the row gradients' all-gather in the
+        table update's, the metrics' all-reduce after the end marker."""
         mesh = self.mesh
         group, n = mesh.group("dp"), mesh.size("dp")
         with data_parallel(mesh, "dp"):
             loss, aux, phys, rows = self._forward_backward(batch)
         self._average_gradients()
+        mark_phase(self.device, "optimizer")
         if isinstance(state.optimizer, OptaxOptimizer):
             state.optimizer.apply()
         else:
             state.optimizer.step()
+        mark_phase(self.device, "table_update")
         # the global batch's ids and row gradients, in rank order: the rows
         # of the global batch in order (first summed over the mesh's other
         # axes, whose ranks hold the same rows: each has part of the
@@ -886,6 +906,7 @@ class Trainer:
                      if k in schema.slots and schema.slots[k].kind == "sparse"}
         with _deterministic(self.device.type == "cuda" and world > 1):
             self._apply_row_grads(state, phys, row_grads, batch)
+        mark_phase(self.device, "end")
         metrics = {"loss": loss.detach(), **{k: v.detach()
                                              for k, v in aux.items()}}
         names = sorted(metrics)
@@ -943,11 +964,13 @@ class Trainer:
         `stop()` is asked before every step: true ends the stack early.
         Returns (state, mean metrics, steps run)."""
         k = len(next(iter(stacked.values())))
-        stacked = {key: as_tensor(v) for key, v in stacked.items()}
         graph = None
+        with span("fit.pin"):
+            stacked = {key: as_tensor(v) for key, v in stacked.items()}
+            if self.device.type == "cuda":
+                stacked = {key: v.pin_memory() if v.device.type == "cpu"
+                           else v for key, v in stacked.items()}
         if self.device.type == "cuda":
-            stacked = {key: v.pin_memory() if v.device.type == "cpu" else v
-                       for key, v in stacked.items()}
             graph = self.graph("train")
             graph.bind(state.optimizer, *state.table_acc.values())
         ms: List[Dict[str, torch.Tensor]] = []
@@ -955,27 +978,30 @@ class Trainer:
             if stop is not None and stop():
                 break
             batch = {key: v[i] for key, v in stacked.items()}
-            if graph is None:
-                state, m = self._step(state, self._put(batch, check=False))
-            else:
-                self._host_step(state)
-                try:
-                    out = graph(functools.partial(self._device_step, state),
-                                batch)
-                except RuntimeError:
-                    # a failed capture ran no step: take back the host
-                    # part's update count (the reseed and LR are rewritten
-                    # by the next step's host part)
-                    if isinstance(state.optimizer, OptaxOptimizer):
-                        state.optimizer.count -= 1
-                    raise
-                m = {name: v.clone() for name, v in out.items()}
-                state.step += 1
+            with span("fit.step"):
+                if graph is None:
+                    state, m = self._step(state, self._put(batch, check=False))
+                else:
+                    self._host_step(state)
+                    try:
+                        out = graph(functools.partial(self._device_step,
+                                                      state), batch)
+                    except RuntimeError:
+                        # a failed capture ran no step: take back the host
+                        # part's update count (the reseed and LR are
+                        # rewritten by the next step's host part)
+                        if isinstance(state.optimizer, OptaxOptimizer):
+                            state.optimizer.count -= 1
+                        raise
+                    with span("fit.metrics"):
+                        m = {name: v.clone() for name, v in out.items()}
+                    state.step += 1
             ms.append(m)
         if not ms:
             return state, {}, 0
-        return state, {name: torch.stack([m[name] for m in ms]).mean(0)
-                       for name in ms[0]}, len(ms)
+        with span("fit.metrics"):
+            return state, {name: torch.stack([m[name] for m in ms]).mean(0)
+                           for name in ms[0]}, len(ms)
 
     def set_learning_rate(self, state: TrainState, lr: float) -> None:
         """The dense LR (the tables keep their fixed Adagrad LR); no effect
@@ -1159,7 +1185,7 @@ class Trainer:
             if k_scan > 1:
                 items = _chunk_stack(items, k_scan, drop_tail)
             done = skip if epoch == start_epoch else 0
-            for item in prefetch(items):
+            for item in spanned(prefetch(items), "fit.next"):
                 if profile_dir is not None and epoch == 0:
                     if not traced and n_steps >= profile_steps[0]:
                         trace, traced = start_trace(profile_dir), True
@@ -1177,25 +1203,30 @@ class Trainer:
                 elif self.control.get("preempt"):
                     break
                 if isinstance(item, _Stack):
-                    state, metrics, inc = self._train_steps_stacked(
-                        state, item.stacked,
-                        stop=None if psync is not None else
-                        lambda: bool(self.control.get("preempt")))
+                    with span("fit.stack") as stack_span:
+                        state, metrics, inc = self._train_steps_stacked(
+                            state, item.stacked,
+                            stop=None if psync is not None else
+                            lambda: bool(self.control.get("preempt")))
+                        stack_span.add(steps=inc)
                     n_ex = item.rows * inc
                 else:
-                    state, metrics = self._step(state, self._put(item,
-                                                                 check=False))
+                    with span("fit.step"):
+                        state, metrics = self._step(
+                            state, self._put(item, check=False))
                     inc, n_ex = 1, _num_examples(item)
                 if psync is not None:
                     psync.push(bool(self.control.get("preempt")))
                 n_steps += inc
                 n_examples += n_ex
-                for k, v in metrics.items():
-                    # a stack's metrics are its mean: weighted by its steps;
-                    # the first value is copied, never kept (a replay's
-                    # outputs are overwritten by the next)
-                    v = v * inc if inc > 1 else v
-                    running[k] = running[k] + v if k in running else v.clone()
+                with span("fit.metrics"):
+                    for k, v in metrics.items():
+                        # a stack's metrics are its mean: weighted by its
+                        # steps; the first value is copied, never kept (a
+                        # replay's outputs are overwritten by the next)
+                        v = v * inc if inc > 1 else v
+                        running[k] = running[k] + v if k in running \
+                            else v.clone()
                 if inc and n_steps % log_every < inc:
                     log.info("epoch %d step %d: %s", epoch, n_steps, " ".join(
                         f"{k}={float(v):.5f}" for k, v in metrics.items()))

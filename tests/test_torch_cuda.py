@@ -34,6 +34,10 @@ preempted by SIGTERM, restored and resumed on the card equals the
 uninterrupted run bit for bit (dropout 0.3, torch's deterministic
 algorithms, so the duplicate sums add in one order).
 
+A graphed train step holds its six phase markers (rf_span_gather to
+rf_span_end) once per replay, in order, and its phases' busy time sums to
+the replay's; an eager step launches them only under a profiler.
+
 Training steps on the card agree with the same steps on the CPU; the GEMMs
 and the duplicate sums add in another order on each device, so gradients
 differ in their last bits:
@@ -2181,3 +2185,108 @@ def test_nccl_world_of_one_mesh_steps_match_the_single_card(world_of_one):
     for name, got in world_of_one["steps"].items():
         assert got["loss_rel"] <= 1e-6 and got["state_rel"] <= 1e-6, \
             (name, got)
+
+
+def _device_events(prof, tmp_path):
+    """(name, start, end) of a profile's kernels, copies and fills (µs), by
+    start."""
+    import json
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted(((str(e["name"]), float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("ph") == "X" and "dur" in e
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                  key=lambda ev: ev[1])
+
+
+def _busy_us(events, t0, t1):
+    """The union of the events' intervals inside [t0, t1)."""
+    total, reach = 0.0, t0
+    for _, s, e in events:
+        s, e = max(s, reach), min(e, t1)
+        if e > s:
+            total += e - s
+            reach = e
+    return total
+
+
+def test_a_graphed_step_marks_its_six_phases_once_per_replay(cuda, tmp_path):
+    """Eight replays of a Dssm step (demo_recall, towers 1024-512-256,
+    batch 1024) under a profiler of the device's activity alone: each
+    replay holds the six rf_span_ markers once, in the step's order, and
+    the five phases' busy time (each from its marker to the next) sums to
+    the replay's busy time (its first marker to the end of its last) within
+    1%: the end marker alone lies outside them. A kernel and a wait open
+    the profile: a profiler can drop the first event of its session."""
+    from recommendflow_tpu_torch.ops.cuda.span_marker import PHASES
+    t = tp.demo_trainer({"tower_units": [1024, 512, 256]}, device="cuda",
+                        split_strategy="dense")
+    batches = tp.demo_batches(12, seed=5, batch=1024).batches
+    st = t.init_state(batches[0])
+    st, _ = t.train_steps(st, batches[:4])         # eager, captured, replays
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        st, _ = t.train_steps(st, batches[4:])
+        torch.cuda.synchronize()
+    events = _device_events(prof, tmp_path)
+    marks = [(n.split("rf_span_")[1], s, e) for n, s, e in events
+             if "rf_span_" in n]
+    assert [m[0] for m in marks] == list(PHASES) * 8, [m[0] for m in marks]
+    for r in range(8):
+        step = marks[6 * r:6 * r + 6]
+        phases = sum(_busy_us(events, a[1], b[1]) for a, b in zip(step, step[1:]))
+        whole = _busy_us(events, step[0][1], step[-1][2])
+        assert all(_busy_us(events, a[1], b[1]) > 0 for a, b in zip(step, step[1:]))
+        assert abs(whole - phases) <= 0.01 * whole, (r, whole, phases)
+
+
+def test_markers_launch_eagerly_only_while_recording(cuda, monkeypatch):
+    """An eager step on the card launches its six markers, in the step's
+    order, only under a profiler. Counted at the launch: a profiler does not
+    list every eager launch of a ctypes library's kernels (its own CUDA
+    runtime; tools/profile_slice.py), so the trace is not the count."""
+    from recommendflow_tpu_torch.ops.cuda import span_marker
+    real, launched = span_marker.launch_marker, []
+
+    def counted(phase, device):
+        launched.append(phase)
+        real(phase, device)
+    monkeypatch.setattr(span_marker, "launch_marker", counted)
+    t = tp.demo_trainer({"tower_units": [64, 32]}, device="cuda",
+                        split_strategy="dense")
+    batches = tp.demo_batches(3, seed=6, batch=256).batches
+    st = t.init_state(batches[0])
+    t.train_step(st, batches[0])
+    torch.cuda.synchronize()
+    assert launched == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        t.train_step(st, batches[1])
+        torch.cuda.synchronize()
+    assert launched == list(span_marker.PHASES)
+
+
+def test_no_garbage_is_collected_inside_a_capture(cuda):
+    """StepGraph captures with the garbage collector off, and on again
+    after: a dead cycle that holds another CUDA graph must not be destroyed
+    inside a capture, which forbids that call. The eager first run collects
+    as usual."""
+    import gc
+    from recommendflow_tpu_torch.train.graphs import StepGraph
+    seen = []
+
+    def step(t):
+        seen.append(gc.isenabled())
+        return {"y": t["x"] * 2}
+    g = StepGraph(torch.device("cuda"), "gc")
+    x = torch.arange(8.0, device="cuda")
+    for _ in range(3):                  # eager, captured, replayed
+        out = g(step, {"x": x})
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled()
+    assert torch.equal(out["y"], x * 2)

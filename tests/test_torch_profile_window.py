@@ -4,18 +4,16 @@
 to b - 1 (the JAX trainer's window: opened at n_steps >= a, closed at
 >= b, never reopened, closed at the epoch's end when the epoch is shorter)
 and writes one Chrome trace: the trace holds one `Optimizer.step` per step
-of the window. A second fit in the same process traces again. The port's
-StepTimer EMA, scope_report table and memory_percent equal the JAX module's
-exactly under the same patched clock and /proc/meminfo.
+of the window, and the program's spans inside it by name. A second fit in
+the same process traces again. The port's memory_percent equals the JAX
+module's exactly under the same patched /proc/meminfo. The span recorder
+is held in test_torch_spans.py.
 """
 import builtins
 import glob
 import io
 import json
 import os
-import time
-
-import pytest
 
 import _torch_parity as tp
 
@@ -66,46 +64,29 @@ def test_a_second_fit_traces_again(tmp_path):
     assert _optimizer_steps(a) == 2 and _optimizer_steps(b) == 1
 
 
+def test_the_window_records_the_programs_spans(tmp_path):
+    """Inside the window the program's spans are recorded and are in the
+    Chrome trace by name: one fit.step a step of the window."""
+    from recommendflow_tpu_torch.utils import profiling
+    profiling._SPANS.clear()
+    _port().fit(_batches(6), epochs=1, profile_dir=str(tmp_path),
+                profile_steps=(2, 5), verbose=False)
+    (trace,) = _traces(tmp_path)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    named = [e for e in events if e.get("cat") in ("user_annotation", "cpu_op")
+             and e.get("name") == "fit.step"]
+    assert len(named) == 3                       # steps 2, 3 and 4
+    assert sum(s.name == "fit.step" for s in profiling.spans()) == 3
+    profiling._SPANS.clear()
+
+
 def test_trace_context_writes_one_trace(tmp_path):
     import torch
     from recommendflow_tpu_torch.utils.profiling import trace
     with trace(str(tmp_path)):
         torch.ones(8).sum()
     assert len(_traces(tmp_path)) == 1
-
-
-@pytest.fixture
-def clock(monkeypatch):
-    """time.perf_counter stepping through fixed readings (both modules
-    call time.perf_counter)."""
-    ticks = iter([0.0, 0.010, 0.025, 0.030, 0.070, 0.071, 0.2, 0.45,
-                  0.5, 0.9] * 2)
-    monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-
-
-def test_step_timer_matches_jax(clock):
-    from recommendflow_tpu.utils import profiling as jprof
-    from recommendflow_tpu_torch.utils import profiling as tprof
-    out = []
-    for mod in (jprof, tprof):
-        t = mod.StepTimer(ema=0.9)
-        out.append(([t.tick() for _ in range(10)], t.examples_per_sec(64)))
-    assert out[0] == out[1]
-    assert out[0][0][0] is None and out[0][1] > 0
-
-
-def test_scope_report_matches_jax(clock):
-    from recommendflow_tpu.utils import profiling as jprof
-    from recommendflow_tpu_torch.utils import profiling as tprof
-    reports = []
-    for mod in (jprof, tprof):
-        for name in ("load", "step", "load", "eval", "step"):
-            with mod.timed(name):
-                pass
-        reports.append(mod.scope_report())
-    assert reports[0] == reports[1]
-    assert jprof.scope_report() == tprof.scope_report()     # reset: empty
-    assert "load" in reports[0] and "step" in reports[0]
 
 
 def test_memory_percent_matches_jax(monkeypatch):
