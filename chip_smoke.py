@@ -36,6 +36,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             bitwise;
   6. sparse_adagrad_apply   the same step from the compacted f32 sums: the
                             same tolerances;
+ 6b. combine_row_grads      the split update's grouped duplicate sum against
+                            its plain version on Zipf(1.2) ids at Dssm's two
+                            bench_recall tables, Dcn/Criteo's 23 tables and a
+                            60,000-id table whose hot row's run crosses ~300
+                            chunks: uid, valid and n_valid equal, sums within
+                            1e-5 of max(1, max|sum|), bitwise across two
+                            calls; one grouped call each (launches by table
+                            count); the grouped call's graph replay timed
+                            against the per-table PyTorch path it replaced;
   7. flash_attention        against its plain version, f32 and bf16: at the
                             encoder's shape [256, 12, 64, 64] (q, k, v the
                             strided split_heads views of [B, L, H*D], key
@@ -619,6 +628,22 @@ MATCHING = "recommendflow_tpu.models.matching"
 # kwargs, config ("image": IMAGE_YAML), Networks overrides, the kernels its
 # three steps must launch, whether it takes the gradient check)
 TABLE_KERNELS = ("gather_rows", "scatter_add_rows", "rowwise_adagrad_update")
+# combine_row_grads' tables, (ids a step, stored width, stored rows): Dssm's
+# two at conf/bench_recall.yaml's widths (batch 1024), Dcn/Criteo's 23
+# (portbench/configs/dcn_criteo.json's fields grouped by dim, batch 512),
+# and one table whose Zipf hot row takes over 10,000 ids
+COMBINE_LAYOUTS = {
+    "dssm_recall": [(2048, 256, 256), (87040, 256, 1505024)],
+    "dcn_criteo": [(1024, 256, 1), (512, 11, 10), (1024, 12, 33),
+                   (512, 13, 24), (512, 14, 27), (512, 19, 105),
+                   (512, 25, 305), (512, 29, 583), (512, 30, 633),
+                   (512, 37, 1460), (512, 41, 2173), (512, 45, 3194),
+                   (1024, 52, 11335), (512, 63, 12517), (512, 66, 14992),
+                   (512, 105, 93145), (512, 117, 142572), (512, 139, 286181),
+                   (512, 231, 2202608), (512, 290, 5461306),
+                   (512, 309, 7046547), (512, 323, 8351593),
+                   (512, 339, 10131227)],
+    "hot_run": [(60000, 256, 1505024)]}
 MATCHING_ZOO = {
     "Mobius": (f"{MATCHING}.mobius.Mobius", {}, DEMO_CONF, {},
                TABLE_KERNELS + ("sparse_adagrad_apply",), False),
@@ -672,7 +697,8 @@ TEXT_LEN = 64
 TEXT_CPU_TOL = 1e-4
 TEXT_LR = 2e-5
 PHASES = ("build", "gather_rows", "grouped_score_max", "scatter_add_rows",
-          "rowwise_adagrad_update", "sparse_adagrad_apply", "flash_attention",
+          "rowwise_adagrad_update", "sparse_adagrad_apply",
+          "combine_row_grads", "flash_attention",
           "slice", "train", "ranking", "train_options", "long_runs",
           "dispatch", "ranking_zoo",
           "attention_ranking", "text_recall", "simbert", "matching_zoo",
@@ -706,6 +732,9 @@ KERNEL_META = {
     "sparse_adagrad_apply": dict(
         route="cuda", source="recommendflow_tpu_torch/csrc/sparse_apply.cu",
         replaces="recommendflow_tpu/ops/pallas/sparse_apply.py:92"),
+    "combine_row_grads": dict(
+        route="cuda", source="recommendflow_tpu_torch/csrc/row_grad_combine.cu",
+        replaces="none (XLA's sort and segment sum in the JAX trainer)"),
     "flash_attention": dict(
         route="cuda", source="recommendflow_tpu_torch/csrc/flash_attention.cu",
         replaces="recommendflow_tpu/ops/pallas/flash_attention.py:73"),
@@ -719,7 +748,8 @@ KERNEL_META = {
 # the path each kernel's launches are counted on
 KERNEL_PATH = {"gather_rows": "slice", "grouped_score_max": "slice",
                "scatter_add_rows": "train", "rowwise_adagrad_update": "train",
-               "sparse_adagrad_apply": "train", "flash_attention": "encode",
+               "sparse_adagrad_apply": "train", "combine_row_grads": "train",
+               "flash_attention": "encode",
                "grouped_score_max_uint8": "sq_search",
                "grouped_score_max_bf16": "sq_search_bf16"}
 FA_F32_TOL = 1e-5
@@ -1060,6 +1090,7 @@ def main(argv=None) -> int:
     from recommendflow_tpu_torch.ops.cuda import sparse_apply as k_sparse
     from recommendflow_tpu_torch.ops.cuda import table_update as k_dense
     from recommendflow_tpu_torch.ops.cuda import flash_attention as k_fa
+    from recommendflow_tpu_torch.ops.cuda import row_grad_combine as k_comb
     from recommendflow_tpu_torch.ops.attention import split_heads
     from recommendflow_tpu_torch.encoder import TextEncoderService, Tokenizer
     from recommendflow_tpu_torch.encoder import synthetic as enc_syn
@@ -1330,6 +1361,75 @@ def main(argv=None) -> int:
         log("sparse_adagrad_apply", **err)
         del p_k, a_k, p_r, a_r
 
+    # ------------------------------------------------ 6b. combine_row_grads
+    comb_times = {}
+    if "combine_row_grads" in phases:
+        crng = np.random.default_rng(12)
+
+        def comb_tables(specs):
+            """Zipf(1.2) stored-row ids, the hot row a third into the
+            table, and bf16 row gradients: (ids, g, rows) per spec."""
+            out = []
+            for n, width, rows in specs:
+                n = n if not rehearse else max(1, n // 16)
+                ids = ((crng.zipf(1.2, n) - 1 + rows // 3) % rows).astype(
+                    np.int32)
+                g = crng.standard_normal((n, width), dtype=np.float32) * 0.01
+                out.append((torch.from_numpy(ids).to(dev),
+                            torch.from_numpy(g).to(dev).to(torch.bfloat16),
+                            rows))
+            return out
+
+        def replay_ms(fn):
+            """fn captured into a CUDA graph, one replay's median time."""
+            fn()
+            sync()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                fn()
+            return Timer(torch, 20).median_ms(lambda i: graph.replay())
+
+        for name, specs in COMBINE_LAYOUTS.items():
+            tables = comb_tables(specs)
+            by = dict(k_comb.combine_row_grads.launches_by_tables)
+            got = k_comb.combine_row_grads(tables)
+            again = k_comb.combine_row_grads(tables)
+            plain = k_comb.combine_row_grads_plain(tables)
+            sync()
+            grouped = k_comb.combine_row_grads.launches_by_tables.get(
+                len(tables), 0) - by.get(len(tables), 0)
+            bitwise = all(torch.equal(a, b) for x, y in zip(got, again)
+                          for a, b in zip(x, y))
+            same_rows = all(torch.equal(x[k], y[k]) for x, y in zip(got, plain)
+                            for k in (1, 2, 3))
+            err = max(float((x[0] - y[0]).abs().max()) /
+                      max(1.0, float(y[0].abs().max()))
+                      for x, y in zip(got, plain))
+            require(bitwise, f"combine_row_grads ({name}) differs between "
+                    f"two calls")
+            require(same_rows, f"combine_row_grads ({name}): uid, valid or "
+                    f"n_valid differ from the plain version")
+            require(err <= 1e-5, f"combine_row_grads ({name}): sums {err} "
+                    f"from the plain version")
+            require(rehearse or grouped == 2, f"combine_row_grads ({name}): "
+                    f"{grouped} grouped calls of {len(tables)} tables, not 2")
+            rec = dict(tables=len(tables),
+                       ids=sum(int(t[0].numel()) for t in tables),
+                       distinct_rows=sum(int(x[3]) for x in got),
+                       longest_run=max(int(torch.bincount(t[0].long()).max())
+                                       for t in tables),
+                       bitwise_across_calls=bitwise, max_rel_err=err,
+                       grouped_calls=grouped)
+            if not rehearse:
+                rec["grouped_replay_ms"] = replay_ms(
+                    lambda: k_comb.combine_row_grads(tables))
+                rec["per_table_pytorch_replay_ms"] = replay_ms(
+                    lambda: k_comb.combine_row_grads_plain(tables))
+                comb_times[name] = rec
+            log("combine_row_grads", layout=name, **rec)
+            del got, again, plain, tables
+        errs["combine_row_grads"] = 0.0
+
     # ----------------------------------------- encoder inputs (7, 23-27)
     cfg = E["config"]
     heads, layers = cfg["num_attention_heads"], cfg["num_hidden_layers"]
@@ -1477,9 +1577,10 @@ def main(argv=None) -> int:
 
     def check_split_step(model, state, batch, strategy, tag):
         """One more split step whose table update is redone through the
-        plain versions on the same row gradients. Both run under torch's
-        deterministic algorithms: the duplicate sums' index_add_ then adds
-        in one order on both sides instead of by float atomics."""
+        plain versions of kernels 2-4 on the same row gradients, summed by
+        the one-table combine_row_grads (a table's sums do not depend on the
+        tables grouped with it). Both run under torch's deterministic
+        algorithms."""
         trainer = Trainer(model, table_update="split", split_strategy=strategy,
                           device=dev, seed=0)
         trainer.plan(batch)
@@ -1668,10 +1769,12 @@ def main(argv=None) -> int:
                 "scatter_add_rows": k_rows.scatter_add_rows,
                 "rowwise_adagrad_update": k_dense.rowwise_adagrad_update,
                 "sparse_adagrad_apply": k_sparse.sparse_adagrad_apply,
+                "combine_row_grads": k_comb.combine_row_grads,
                 "flash_attention": k_fa.flash_attention}
 
     by_dtype = k_scan.grouped_score_max.launches_by_dtype
     by_row_bytes = k_rows.gather_rows.launches_by_row_bytes
+    by_tables = k_comb.combine_row_grads.launches_by_tables
 
     def reset_counts():
         for fn in counters.values():
@@ -1679,15 +1782,18 @@ def main(argv=None) -> int:
         for form in by_dtype:
             by_dtype[form] = 0
         by_row_bytes.clear()
+        by_tables.clear()
 
     def read_counts():
         """Launches by kernel, the uint8 and bf16 forms of grouped_score_max
-        apart (they are counted in grouped_score_max's total as well), and
-        gather_rows' launches by row width in bytes."""
+        apart (they are counted in grouped_score_max's total as well),
+        gather_rows' launches by row width in bytes and combine_row_grads'
+        grouped calls by their number of tables."""
         return {**{name: fn.launches for name, fn in counters.items()},
                 "grouped_score_max_uint8": by_dtype["uint8"],
                 "grouped_score_max_bf16": by_dtype["bfloat16"],
-                "gather_rows_by_row_bytes": dict(by_row_bytes)}
+                "gather_rows_by_row_bytes": dict(by_row_bytes),
+                "combine_row_grads_by_tables": dict(by_tables)}
 
     launches = {"slice": {}, "train": {}, "ranking": {}, "train_options": {},
                 "long_runs": {}, "dispatch": {}, "attention_ranking": {},
@@ -5483,6 +5589,16 @@ def main(argv=None) -> int:
         rs = gather_times["recall_serving"]
         add("gather_rows", rs["ms"], rs["plain_ms"], rs["library_ms"],
             rs["bytes"], shapes=gather_times)
+        # the grouped duplicate sum at Dssm's two tables (phase 6b): one
+        # graph replay each way; bytes: ids and bf16 gradients read, the f32
+        # sums (padding included), uid and valid written
+        if "dssm_recall" in comb_times:
+            cr = comb_times["dssm_recall"]
+            cw = COMBINE_LAYOUTS["dssm_recall"][0][1]
+            add("combine_row_grads", cr["grouped_replay_ms"],
+                cr["per_table_pytorch_replay_ms"], None,
+                cr["ids"] * (4 + cw * 2 + cw * 4 + 4 + 1),
+                shapes=comb_times)
         # kernels 2-4 at the bench_recall shape (phases 4-6): the kernels
         # line
         recall_times, recall_shape = table_kernel_times(stored, upd, acc0, gd)

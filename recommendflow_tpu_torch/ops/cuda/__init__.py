@@ -7,4 +7,4 @@ built or loaded when a module is imported.
 
 # csrc/<name>.cu, one shared library each
 KERNELS = ("embedding_bag", "grouped_topk", "table_update", "sparse_apply",
-           "flash_attention", "span_marker")
+           "flash_attention", "span_marker", "row_grad_combine")

@@ -14,7 +14,8 @@
     `recommendflow_tpu/ops/pallas/embedding_bag.py:scatter_add_rows` (and the
     sorted XLA scatter-add of `take_rows`' backward and of
     `train/optimizers.py:split_table_update`'s "dense" strategy). Its input
-    comes from `segment_row_grads`, the sorted duplicate sum (plain torch).
+    comes from `row_grad_combine.combine_row_grads`, the sorted duplicate
+    sum (`segment_row_grads` is its one-table call on sorted ids).
 
 The CUDA source, the bounds and the designs are in `csrc/embedding_bag.cu`.
 Each wrapper takes its plain version for CPU tensors only; for CUDA tensors it
@@ -229,21 +230,16 @@ def segment_row_grads(s: torch.Tensor, gs: torch.Tensor, *, num_rows: int
     """Combine duplicate SORTED row gradients into per-unique-row sums: the
     input scatter_add_rows and sparse_adagrad_apply take (the counterpart of
     `_combine_duplicates` and `train/optimizers.py:segment_row_grads` in the
-    JAX package).
+    JAX package). The one-table call of `row_grad_combine.combine_row_grads`.
 
     s [N] sorted int ids, gs [N, W] f32 grads in the same order ->
     (summed [N, W] f32 with zero padding rows, uid [N] int32, valid [N] bool
     and n_valid [1] int32 on the device, as `unique_sorted` gives them).
     Nothing here reads a value back to the host."""
-    n = s.shape[0]
-    dev = s.device
-    if n == 0:
-        return (gs.new_zeros(gs.shape), s.to(torch.int32),
-                torch.zeros(0, dtype=torch.bool, device=dev),
-                torch.zeros(1, dtype=torch.int32, device=dev))
-    uid, valid, n_valid, seg = unique_sorted(s, num_rows=num_rows)
-    summed = torch.zeros_like(gs).index_add_(0, seg, gs)
-    return summed, uid, valid, n_valid
+    from recommendflow_tpu_torch.ops.cuda.row_grad_combine import (
+        combine_row_grads)
+    return combine_row_grads(
+        [(s.to(torch.int32).contiguous(), gs.contiguous(), num_rows)])[0]
 
 
 def scatter_add_rows_plain(ids: torch.Tensor, grads: torch.Tensor,

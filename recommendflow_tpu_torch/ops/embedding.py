@@ -12,9 +12,9 @@ counterpart of `recommendflow_tpu/ops/embedding.py`).
     one-hot segment select, and 128 bytes read per id instead of 512.
   * The gather is `take_rows`: forward `gather_rows` through its custom op
     (`torch.ops.recflow.gather_rows`, one node of an exported program),
-    backward the sorted duplicate sum (`segment_row_grads`) and
-    `scatter_add_rows` into a zero table (all three in
-    ops/cuda/embedding_bag.py).
+    backward the sorted duplicate sum (`combine_row_grads`,
+    ops/cuda/row_grad_combine.py) and `scatter_add_rows` into a zero table
+    (ops/cuda/embedding_bag.py).
     Masked pooling stays in torch.
   * The split-update trainer gathers stored rows itself, outside autograd,
     and hands them in under `rows_key(dim)`; `gather_group` then selects each
@@ -41,7 +41,9 @@ from recommendflow_tpu_torch.config.proto import FeaturePooling
 from recommendflow_tpu_torch.data.schema import (BatchSchema, FeatureSlot,
                                                  TableGroup)
 from recommendflow_tpu_torch.ops.cuda.embedding_bag import (
-    gather_rows_op, scatter_add_rows, segment_row_grads)
+    gather_rows_op, scatter_add_rows)
+from recommendflow_tpu_torch.ops.cuda.row_grad_combine import (
+    combine_row_grads)
 
 NEG_INF = -1e9
 POS_INF = 1e9
@@ -122,10 +124,9 @@ class _TakeRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ids, = ctx.saved_tensors
-        rows = ctx.table_shape[0]
-        s, order = torch.sort(ids, stable=True)
-        summed, uid, _valid, n_valid = segment_row_grads(
-            s, g[order].float(), num_rows=rows)
+        (summed, uid, _valid, n_valid), = combine_row_grads(
+            [(ids.to(torch.int32).contiguous(), g.contiguous(),
+              ctx.table_shape[0])])
         dtable = torch.zeros(ctx.table_shape, dtype=ctx.table_dtype,
                              device=g.device)
         scatter_add_rows(uid, summed, dtable, n_valid)

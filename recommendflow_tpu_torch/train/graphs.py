@@ -152,11 +152,13 @@ class StepGraph:
     def stats(self) -> List[Dict[str, Any]]:
         """Per captured signature: capture seconds, the private pool's MB
         (device memory the allocator reserved for it), replays and the
-        kernel launches a replay makes."""
+        kernel launches a replay makes, in all and by counter (those it
+        makes)."""
         return [{"signature": [[k, list(s), str(d)] for k, s, d in sig],
                  "capture_s": e.capture_s, "pool_mb": e.pool_mb,
                  "replays": e.replays,
-                 "launches_per_replay": launches.total(e.launches)}
+                 "launches_per_replay": launches.total(e.launches),
+                 "launches": {k: v for k, v in e.launches.items() if v}}
                 for sig, e in self._entries.items()]
 
     def __call__(self, fn: Callable[[Dict[str, torch.Tensor]], Any],

@@ -8,7 +8,8 @@ and the dense towers take Adam (`torch.optim.Adam` over the non-table
 parameters only; the trainer updates the tables itself, in place, under
 no_grad):
 
-  * `split_table_update`: row-wise Adagrad from sparse [N, W] row gradients
+  * `split_table_update` (`split_tables_update` over every split table of
+    a step): row-wise Adagrad from sparse [N, W] row gradients
     (the trainer's split path), strategies "dense" (scatter_add_rows into a
     zero table, then rowwise_adagrad_update), "sparse_set"
     (sparse_adagrad_apply) and "sparse" (scatter-ADD of the update, plain
@@ -20,9 +21,10 @@ no_grad):
     gradient: the trainer's table_update="dense" path.
 
 Every update runs in place on the table and its accumulator. The duplicate
-sum before the kernels (`segment_row_grads`, ops/cuda/embedding_bag.py) and
-the touched rows' compaction (`unique_sorted`) keep their unique count on
-the device, so no step waits on the host for it.
+sum before the kernels (`combine_row_grads`, ops/cuda/row_grad_combine.py:
+one grouped call over every split table of a step, `split_tables_update`)
+and the touched rows' compaction (`unique_sorted`) keep their unique count
+on the device, so no step waits on the host for it.
 
 A user-chosen optimizer (`make_optimizer`, `make_partitioned_optimizer`) is
 an `OptimizerSpec` that the trainer builds over the model's parameters into
@@ -41,7 +43,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import torch
 
 from recommendflow_tpu_torch.ops.cuda.embedding_bag import (
-    gather_rows, scatter_add_rows, segment_row_grads, unique_sorted)
+    gather_rows, scatter_add_rows, unique_sorted)
+from recommendflow_tpu_torch.ops.cuda.row_grad_combine import (
+    combine_row_grads)
 from recommendflow_tpu_torch.ops.cuda.sparse_apply import sparse_adagrad_apply
 from recommendflow_tpu_torch.ops.cuda.table_update import (
     rowwise_adagrad_update)
@@ -76,7 +80,7 @@ def split_table_update(p: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
     p [R, W] (f32 or bf16), acc [R, 1] f32, ids [N] stored rows (duplicates
     allowed, any order), g [N, W] row gradients -> (p, acc), both updated in
     place. Every strategy squares the SUM of a row's duplicate gradients,
-    summed in f32.
+    summed in f32 (`combine_row_grads`, ops/cuda/row_grad_combine.py).
 
       "dense":      scatter_add_rows of the sums into a zero [R, W] table of
                     p's dtype (one rounding), then rowwise_adagrad_update
@@ -89,33 +93,54 @@ def split_table_update(p: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
                     untouched rows keep their bits.
       "sparse":     the JAX package's ADD form in plain torch (no kernel):
                     the accumulator and the update, rounded to p's dtype, are
-                    added at the unique rows."""
-    if strategy not in STRATEGIES:
-        raise ValueError(f"unknown split strategy {strategy!r} "
-                         f"(one of {STRATEGIES})")
-    s, order = torch.sort(ids.to(torch.int32), stable=True)
-    summed, uid, valid, n_valid = segment_row_grads(
-        s, g[order].float(), num_rows=p.shape[0])
+                    added at the unique rows.
 
+    The one-table case of `split_tables_update`."""
+    split_tables_update([(p, acc, ids, g, strategy)], lr=lr, eps=eps)
+    return p, acc
+
+
+def split_tables_update(updates: Sequence[Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor, torch.Tensor,
+                                                str]],
+                        *, lr: float, eps: float = 1e-10) -> None:
+    """`split_table_update` of every split table of a step, in place: one
+    `combine_row_grads` over all the tables (one grouped call on a card),
+    then each table's strategy on its own sums. updates: (p, acc, ids, g,
+    strategy) per table. A table's result does not depend on the tables it
+    is grouped with."""
+    for *_, strategy in updates:
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown split strategy {strategy!r} "
+                             f"(one of {STRATEGIES})")
+    combined = combine_row_grads(
+        [(ids.to(torch.int32).contiguous(), g.contiguous(), p.shape[0])
+         for p, _, ids, g, _ in updates])
+    for (p, acc, _, _, strategy), sums in zip(updates, combined):
+        _apply_row_sums(p, acc, *sums, lr=lr, eps=eps, strategy=strategy)
+
+
+def _apply_row_sums(p: torch.Tensor, acc: torch.Tensor, summed: torch.Tensor,
+                    uid: torch.Tensor, valid: torch.Tensor,
+                    n_valid: torch.Tensor, *, lr: float, eps: float,
+                    strategy: str) -> None:
+    """One table's strategy (`split_table_update`) on its combined sums."""
     if strategy == "dense":
         gd = torch.zeros_like(p)
         scatter_add_rows(uid, summed, gd, n_valid)
-        return rowwise_adagrad_update(p, acc, gd, lr=lr, eps=eps)
-
-    if strategy == "sparse_set":
-        return sparse_adagrad_apply(p, acc, uid, summed, n_valid, lr=lr,
-                                    eps=eps)
-
-    # ADD semantics: padding segments point back IN bounds at the last real
-    # row and add zero there
-    rows = torch.where(valid, uid, s[-1].to(torch.int32)).long()
-    d_acc = torch.where(valid[:, None],
-                        (summed * summed).mean(dim=1, keepdim=True), 0.0)
-    acc.index_add_(0, rows, d_acc)
-    upd = -lr * summed * torch.rsqrt(acc[rows] + eps)
-    upd = torch.where(valid[:, None], upd, 0.0)
-    p.index_add_(0, rows, upd.to(p.dtype))
-    return p, acc
+        rowwise_adagrad_update(p, acc, gd, lr=lr, eps=eps)
+    elif strategy == "sparse_set":
+        sparse_adagrad_apply(p, acc, uid, summed, n_valid, lr=lr, eps=eps)
+    else:
+        # ADD semantics: padding entries point back IN bounds at the first
+        # real row and add zero there
+        rows = torch.where(valid, uid, uid[:1]).long()
+        d_acc = torch.where(valid[:, None],
+                            (summed * summed).mean(dim=1, keepdim=True), 0.0)
+        acc.index_add_(0, rows, d_acc)
+        upd = -lr * summed * torch.rsqrt(acc[rows] + eps)
+        upd = torch.where(valid[:, None], upd, 0.0)
+        p.index_add_(0, rows, upd.to(p.dtype))
 
 
 def sparse_rowwise_adagrad_update(p: torch.Tensor, acc: torch.Tensor,

@@ -13,11 +13,13 @@ A step runs eagerly on the card:
      backward;
   3. Adam on the dense parameters (the tables are in no Adam group), at the
      schedule's LR for this step when `lr_schedule` is given;
-  4. the tables' row-wise Adagrad, in place under no_grad: per table
-     `split_table_update` with its strategy ("dense": scatter_add_rows +
-     rowwise_adagrad_update; "sparse_set": sparse_adagrad_apply; "sparse":
-     plain torch); otherwise from the dense table gradient that take_rows'
-     backward built with scatter_add_rows: on the touched rows only
+  4. the tables' row-wise Adagrad, in place under no_grad: on the split
+     path `split_tables_update`, one grouped duplicate sum over every split
+     table (`combine_row_grads`), then per table its strategy ("dense":
+     scatter_add_rows + rowwise_adagrad_update; "sparse_set":
+     sparse_adagrad_apply; "sparse": plain torch); otherwise from the
+     dense table gradient that take_rows' backward built with
+     scatter_add_rows: on the touched rows only
      (`sparse_rowwise_adagrad_update`: table_update "sparse", or "auto" on a
      model without row_injection where the legacy planner finds it cheaper)
      or over the whole table (rowwise_adagrad_update).
@@ -148,7 +150,7 @@ from recommendflow_tpu_torch.train.graphs import StepGraph, as_tensor
 from recommendflow_tpu_torch.train.optimizers import (
     STRATEGIES, OptaxOptimizer, OptimizerSpec, default_table_lr,
     init_accumulator, make_lr_schedule, sparse_rowwise_adagrad_update,
-    split_table_update)
+    split_tables_update)
 # make_optimizer lives in the JAX package's trainer module: importable here
 from recommendflow_tpu_torch.train.optimizers import (  # noqa: F401
     make_optimizer, make_partitioned_optimizer)
@@ -800,12 +802,11 @@ class Trainer:
         tables = table_params(self.model)
         with torch.no_grad():
             if self._split_dims:
-                for d, strategy in self._split_dims.items():
-                    if d in phys:
-                        split_table_update(
-                            tables[d].detach(), state.table_acc[f"dim{d}"],
-                            phys[d], row_grads[d], lr=self.table_lr,
-                            strategy=strategy)
+                split_tables_update(
+                    [(tables[d].detach(), state.table_acc[f"dim{d}"], phys[d],
+                      row_grads[d], strategy)
+                     for d, strategy in self._split_dims.items() if d in phys],
+                    lr=self.table_lr)
                 return
             touched = touched_stored_rows(
                 self.model.schema, {f"dim{d}": tables[d]

@@ -26,7 +26,7 @@ SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
 # every phase but the build and the timings, which need the card
 REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
-             "flash_attention", "slice", "train", "ranking", "train_options",
+             "combine_row_grads", "flash_attention", "slice", "train", "ranking", "train_options",
              "long_runs", "dispatch", "ranking_zoo",
              "attention_ranking", "text_recall", "simbert", "matching_zoo",
              "export_serve", "sq_search", "ann", "host_tier", "parallel",

@@ -2290,3 +2290,140 @@ def test_no_garbage_is_collected_inside_a_capture(cuda):
     torch.cuda.synchronize()
     assert seen == [True, False] and gc.isenabled()
     assert torch.equal(out["y"], x * 2)
+
+
+# combine_row_grads' tables at the benchmark's shapes, (ids a step, stored
+# width, stored rows): Dcn/Criteo's 23 (batch 512; portbench/configs/
+# dcn_criteo.json's fields grouped by dim) and Dssm's two at
+# conf/bench_recall.yaml's widths (batch 1024)
+DCN_TABLES = [(1024, 256, 1), (512, 11, 10), (1024, 12, 33), (512, 13, 24),
+              (512, 14, 27), (512, 19, 105), (512, 25, 305), (512, 29, 583),
+              (512, 30, 633), (512, 37, 1460), (512, 41, 2173),
+              (512, 45, 3194), (1024, 52, 11335), (512, 63, 12517),
+              (512, 66, 14992), (512, 105, 93145), (512, 117, 142572),
+              (512, 139, 286181), (512, 231, 2202608), (512, 290, 5461306),
+              (512, 309, 7046547), (512, 323, 8351593), (512, 339, 10131227)]
+DSSM_TABLES = [(2048, 256, 256), (87040, 256, 1505024)]
+
+
+def _combine_tables(cuda, specs, seed, dtype=torch.bfloat16):
+    """Zipf(1.2) stored-row ids (the hot row a third into the table) and
+    random row gradients, one (ids, g, rows) per spec."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, width, rows in specs:
+        ids = ((rng.zipf(1.2, n) - 1 + rows // 3) % rows).astype(np.int32)
+        g = rng.standard_normal((n, width), dtype=np.float32) * 0.01
+        out.append((torch.from_numpy(ids).to(cuda),
+                    torch.from_numpy(g).to(cuda).to(dtype), rows))
+    return out
+
+
+def _combine_against_plain(tables):
+    """The kernel against the plain version on the card: uid, valid and
+    n_valid equal, the f32 sums within reordering (the plain version adds
+    by float atomics): rtol 1e-5, atol 1e-5, for sums of up to ~16,000
+    terms of ~0.01 whose partial sums reach ~3 (2^-24 of that, times the
+    square root of the terms, is ~2e-5 at worst; 3e-6 seen)."""
+    from recommendflow_tpu_torch.ops.cuda import row_grad_combine as rgc
+    got = rgc.combine_row_grads(tables)
+    want = rgc.combine_row_grads_plain(tables)
+    torch.cuda.synchronize()
+    for (s, u, v, n), (rs, ru, rv, rn) in zip(got, want):
+        assert torch.equal(n, rn) and torch.equal(u, ru) and torch.equal(v, rv)
+        torch.testing.assert_close(s, rs, rtol=1e-5, atol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_combine_row_grads_kernel_against_plain(cuda, dtype):
+    """Zipf(1.2) tables of widths 256 (vector loads), 339, 8 and 64, one of
+    a single id: the 60,000-id table's hot row takes over 10,000 ids, a run
+    across some 300 chunks of 32, summed without atomics. One grouped call."""
+    from recommendflow_tpu_torch.ops.cuda import row_grad_combine as rgc
+    tables = _combine_tables(cuda, [(60000, 256, 1505024), (40000, 339, 500000),
+                                    (5000, 8, 90), (1, 64, 10)], 3, dtype)
+    hot = int(torch.bincount(tables[0][0].long()).max())
+    assert hot > 10000
+    before = rgc.combine_row_grads.launches
+    by = dict(rgc.combine_row_grads.launches_by_tables)
+    got = _combine_against_plain(tables)
+    assert rgc.combine_row_grads.launches == before + 1
+    assert rgc.combine_row_grads.launches_by_tables[4] == by.get(4, 0) + 1
+    # the views lie in one call's buffers, the sums past n_valid are zero
+    for summed, uid, valid, n_valid in got:
+        assert not summed[int(n_valid):].any()
+        assert int(valid.sum()) == int(n_valid)
+
+
+@pytest.mark.parametrize("layout", ["dcn", "dssm"])
+def test_combine_row_grads_at_the_benchmark_layouts(cuda, layout):
+    """Dcn's 23 tables and Dssm's two in one grouped call each, bitwise
+    equal across two runs and to each table's call alone."""
+    from recommendflow_tpu_torch.ops.cuda import row_grad_combine as rgc
+    specs = DCN_TABLES if layout == "dcn" else DSSM_TABLES
+    tables = _combine_tables(cuda, specs, 5)
+    by = dict(rgc.combine_row_grads.launches_by_tables)
+    first = _combine_against_plain(tables)
+    again = rgc.combine_row_grads(tables)
+    torch.cuda.synchronize()
+    assert rgc.combine_row_grads.launches_by_tables[len(specs)] == \
+        by.get(len(specs), 0) + 2
+    for a, b, t in zip(first, again, tables):
+        alone, = rgc.combine_row_grads([t])
+        for x, y, z in zip(a, b, alone):
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_combine_row_grads_sixty_four_bit_keys(cuda):
+    from recommendflow_tpu_torch.ops.cuda import row_grad_combine as rgc
+    specs = [(3000, 32, (1 << 29) + 7)] + [(400, 8, 1000)] * 15
+    assert rgc.plan_layout(*zip(*specs)).key64
+    _combine_against_plain(_combine_tables(cuda, specs, 7, torch.float32))
+
+
+def test_combine_row_grads_graph_replay_equals_eager(cuda):
+    """The grouped call captured by StepGraph: each replay bitwise the eager
+    call on the same inputs, and counted once a replay."""
+    from recommendflow_tpu_torch.ops.cuda import row_grad_combine as rgc
+    from recommendflow_tpu_torch.train.graphs import StepGraph
+    specs = DSSM_TABLES
+
+    def step(b):
+        out = rgc.combine_row_grads(
+            [(b[f"ids{t}"], b[f"g{t}"], rows)
+             for t, (_, _, rows) in enumerate(specs)])
+        return {f"{k}{t}": x for t, o in enumerate(out)
+                for k, x in zip(("summed", "uid", "valid", "n_valid"), o)}
+    graph = StepGraph(cuda, "combine")
+    for seed in range(3):                  # eager, captured, replayed
+        tables = _combine_tables(cuda, specs, 20 + seed)
+        batch = {**{f"ids{t}": ids for t, (ids, _, _) in enumerate(tables)},
+                 **{f"g{t}": g for t, (_, g, _) in enumerate(tables)}}
+        before = rgc.combine_row_grads.launches
+        got = {k: v.clone() for k, v in graph(step, batch).items()}
+        assert rgc.combine_row_grads.launches == before + 1
+        want = step(batch)
+        torch.cuda.synchronize()
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    (st,) = graph.stats()
+    assert st["replays"] == 2 and st["launches"]["combine_row_grads"] == 1
+    assert st["launches"]["combine_row_grads_by_tables"] == {2: 1}
+
+
+def test_split_step_combines_once_a_step(cuda):
+    """A graphed split step on demo_recall (dim8 and dim16 split tables)
+    makes one grouped call a step over both."""
+    from recommendflow_tpu_torch.ops.cuda import row_grad_combine as rgc
+    t = tp.demo_trainer({"tower_units": [64, 32]}, device=cuda,
+                        split_strategy="auto")
+    batches = tp.demo_batches(8, seed=4).batches
+    state = t.init_state(batches[0])
+    before = rgc.combine_row_grads.launches
+    by = dict(rgc.combine_row_grads.launches_by_tables)
+    t.train_steps(state, batches)
+    torch.cuda.synchronize()
+    assert rgc.combine_row_grads.launches == before + 8
+    assert rgc.combine_row_grads.launches_by_tables[2] == by.get(2, 0) + 8
+    (st,) = t.graph_stats()["train"]
+    assert st["launches"]["combine_row_grads_by_tables"] == {2: 1}

@@ -202,7 +202,8 @@ def test_launch_count_records():
         launches.add(delta, times=-2)
         assert launches.difference(launches.snapshot(), saved) == {
             **{k: 0 for k in launches.COUNTERS},
-            "gather_rows_by_row_bytes": {}, "grouped_score_max_by_dtype": {}}
+            "gather_rows_by_row_bytes": {}, "grouped_score_max_by_dtype": {},
+            "combine_row_grads_by_tables": {}}
     finally:
         launches.add(launches.difference(launches.snapshot(), saved), -1)
 
