@@ -9,14 +9,17 @@ and puts them back.
   * "half_batch": a train step on the first half of the batch's rows only,
     its loss the mean over them;
   * "altered_answer": the first row of each answer altered where it is
-    produced (a returned id moved to another item, a logit moved by 0.5).
+    produced (a returned id moved to another item, a logit moved by 0.5);
+  * "no_exchange": on a mesh, the gradients' exchange between ranks left
+    out: each rank's dense gradients are scaled as the trainer scales them
+    but never summed over the ranks (`Trainer._average_gradients`).
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Iterator
 
-FAULTS = ("unchanged", "half_batch", "altered_answer")
+FAULTS = ("unchanged", "half_batch", "altered_answer", "no_exchange")
 
 
 @contextlib.contextmanager
@@ -56,6 +59,14 @@ def planted(name: str) -> Iterator[None]:
             return out
         patch(FlatSearcher, "search", search_altered)
         patch(ServingModel, "predict", predict_altered)
+    elif name == "no_exchange":
+        def local_only(self):
+            import torch
+            with torch.no_grad():
+                for p in self.model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(self.mesh.world_size)
+        patch(Trainer, "_average_gradients", local_only)
     else:
         raise ValueError(f"fault {name!r}: one of {FAULTS}")
     try:

@@ -2,7 +2,9 @@
 
   * "fit": `Trainer.fit` over a pool of seeded batches, cycled in whole
     stacks of `stack_steps` until the window closes (its CUDA graphs
-    captured in set-up);
+    captured in set-up); on a mesh (`MeshFitPath`: a cell on several cards,
+    or one whose configuration says `shard_tables`) the same on every rank,
+    each fed its own rows of the global batches;
   * "recall_search": a closed loop of requests, each `Trainer.predict`'s
     graphed eval forward of the rows, then `FlatSearcher(metric="cos")
     .search(topk)` over a seeded catalogue;
@@ -22,6 +24,7 @@ timed path produced, against the plain reference.
 from __future__ import annotations
 
 import gc
+import sys
 import time
 import traceback
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -33,11 +36,13 @@ from portbench.harness import traffic as gen
 from portbench.harness.cell import Cell
 from portbench.harness.trace import TraceSummary, read_profile
 from portbench.reference.common import (TRAINED_KINDS, Adam, Precision,
-                                        default_generator, dropout_seed,
-                                        exact_float32, exact_scores,
-                                        make_dense, make_tables,
+                                        TouchedRows, default_generator,
+                                        draw_rows,
+                                        dropout_seed, exact_float32,
+                                        exact_scores, make_dense, make_tables,
                                         normalize_rows, pooled_features,
-                                        rowwise_adagrad, stored_row_grads)
+                                        rowwise_adagrad, store_positions,
+                                        stored_row_grads, table_store)
 from portbench.reference.layout import Layout
 
 
@@ -82,7 +87,12 @@ class Window:
 
 class Path:
     """Set-up shared by every path: the layout, the weights from the seed
-    and the program's model holding them."""
+    and the program's model holding them. `world` is the number of ranks
+    and `row_sharded` the table widths whose rows they divide (a mesh:
+    `MeshFitPath`)."""
+
+    world = 1
+    row_sharded: Tuple[int, ...] = ()
 
     def __init__(self, cell: Cell, device: torch.device, seed: int):
         self.cell, self.device, self.seed = cell, torch.device(device), int(seed)
@@ -103,11 +113,8 @@ class Path:
         mod = self.cell.config_module
         model = mod.build_model(self.config, self.device, self.seed)
         tables, dense = self.reference_weights()
-        named = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+        named = self.copy_dense(model, dense)
         with torch.no_grad():
-            for name, shape, _ in self.specs:
-                target = named[mod.port_name(name)]
-                target.copy_(dense[name].view(target.shape))
             for d, t in tables.items():
                 p = named[mod.table_name(d)]
                 if p.numel() != t.numel() or p.dtype != t.dtype:
@@ -116,11 +123,23 @@ class Path:
                 p.data = t.view(p.shape)
         return model
 
+    def copy_dense(self, model: torch.nn.Module, dense: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """Copy the benchmark's dense weights into the program's model;
+        returns its parameters and buffers by name."""
+        mod = self.cell.config_module
+        named = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+        with torch.no_grad():
+            for name, shape, _ in self.specs:
+                target = named[mod.port_name(name)]
+                target.copy_(dense[name].view(target.shape))
+        return named
+
     def free(self) -> None:
         for k in list(vars(self)):
             if k not in ("cell", "device", "seed", "config", "traffic", "args",
                          "layout", "ref", "specs", "answers", "program",
-                         "pool"):
+                         "pool", "group", "world", "row_sharded"):
                 delattr(self, k)
         gc.collect()
         if self.device.type == "cuda":
@@ -151,12 +170,30 @@ class FitPath(Path):
         model = self.build_model()
         self.trainer = Trainer(model, learning_rate=opt["dense"]["lr"],
                                table_learning_rate=opt["tables"]["lr"],
-                               device=self.device, seed=self.seed)
-        self.state = self.trainer.init_state(self.pool[0])
+                               device=self.device, seed=self.seed,
+                               **self.trainer_options())
+        self.state = self.trainer.init_state(self.feed(self.pool[0]))
         self.program = self._first_steps()
         # fit's own feed and stacks, on graphs captured above
         self._fit(len(self.pool) // self.stack * self.stack, None)
         sync(self.device)
+
+    # what a mesh changes (`MeshFitPath`); on one card these are plain
+    def trainer_options(self) -> Dict[str, Any]:
+        return {}
+
+    def feed(self, batch: Mapping[str, np.ndarray]) -> Mapping[str, np.ndarray]:
+        """The rows of a global batch that this process passes."""
+        return batch
+
+    def train_call(self, batch: Mapping[str, np.ndarray]):
+        """One of the first steps, through the call that drives fit's
+        stacks (`train_steps`: the same StepGraph)."""
+        return self.trainer.train_steps(self.state, [batch])
+
+    def agree(self, stop: bool) -> bool:
+        """Whether the window closes here (at a stack's start)."""
+        return stop
 
     def _leaves(self):
         mod = self.cell.config_module
@@ -174,7 +211,7 @@ class FitPath(Path):
         losses: List[float] = []
         grad: Dict[str, float] = {}
         for i in range(3):
-            self.state, m = self.trainer.train_steps(self.state, [self.pool[i]])
+            self.state, m = self.train_call(self.feed(self.pool[i]))
             losses.append(float(m["loss"]))
             if i == 0:
                 b1 = opt["dense"]["b1"]
@@ -204,9 +241,10 @@ class FitPath(Path):
             if i % self.stack == 0:
                 if steps is not None and i >= steps:
                     return
-                if deadline is not None and time.perf_counter() >= deadline:
+                if deadline is not None and \
+                        self.agree(time.perf_counter() >= deadline):
                     return
-            b = self.pool[self._next % len(self.pool)]
+            b = self.feed(self.pool[self._next % len(self.pool)])
             self._next += 1
             if record is not None:
                 record.append(b)
@@ -256,15 +294,23 @@ class FitPath(Path):
 
     def reference(self, precision: str = "float32") -> Dict[str, Any]:
         """The reference's three steps on the same batches and weights."""
+        tables, dense = self.reference_weights()
+        return self.reference_steps(precision, tables, dense)
+
+    def reference_steps(self, precision: str, tables: Mapping, dense: Mapping
+                        ) -> Dict[str, Any]:
+        """The reference's three steps on the pool's first batches from the
+        given weights (each table whole, or its `TouchedRows`), each step's
+        dropout drawn over the whole batch."""
         opt = self.config["optimizer"]
         prec = Precision(precision)
-        tables, dense = self.reference_weights()
         trained = [n for n, _, k in self.specs if k in TRAINED_KINDS]
         params = {n: dense[n].clone() for n in trained}
         buffers = {n: v for n, v in dense.items() if n not in params}
         p0 = {n: v.clone() for n, v in params.items()}
-        t0 = {d: t.clone() for d, t in tables.items()}
-        acc = {d: torch.full((g.stored_rows,), opt["tables"]["init_acc"],
+        t0 = {d: table_store(t).clone() for d, t in tables.items()}
+        acc = {d: torch.full((table_store(tables[d]).shape[0] // g.pack,),
+                             opt["tables"]["init_acc"],
                              dtype=torch.float32, device=self.device)
                for d, g in self.layout.groups.items()}
         od = opt["dense"]
@@ -289,8 +335,10 @@ class FitPath(Path):
                 with torch.no_grad():
                     for d, r in rows.items():
                         ids, g = stored_row_grads(self.layout, d, r)
-                        rowwise_adagrad(tables[d], acc[d], self.layout.groups[d].pack,
-                                        ids, g, opt["tables"]["lr"], opt["tables"]["eps"])
+                        rowwise_adagrad(table_store(tables[d]), acc[d],
+                                        self.layout.groups[d].pack,
+                                        store_positions(tables[d], ids), g,
+                                        opt["tables"]["lr"], opt["tables"]["eps"])
                 if i == 0:
                     for d in tables:
                         grad[f"table_dim{d}"] = accumulated_norm(
@@ -299,7 +347,7 @@ class FitPath(Path):
         change = {n: float(torch.linalg.vector_norm(params[n].double() - p0[n].double()))
                   for n in params}
         for d in tables:
-            change[f"table_dim{d}"] = table_change(tables[d], t0[d])
+            change[f"table_dim{d}"] = table_change(table_store(tables[d]), t0[d])
         return {"loss": losses, "grad": grad, "change": change}
 
     @staticmethod
@@ -357,6 +405,141 @@ def table_change(t: torch.Tensor, t0: torch.Tensor, elements: int = 1 << 27) -> 
         d = t[s:s + block].double() - t0[s:s + block].double()
         total += float(torch.sum(d * d))
     return total ** 0.5
+
+
+class MeshFitPath(FitPath):
+    """`FitPath` on a mesh (`harness/ranks.py`), in every rank: the
+    program's `Trainer(model, mesh=, shard_tables=)` with the
+    configuration's `shard_tables`, fed this rank's rows of each global
+    batch (`parallel.mesh.shard_batch`; `batch_size` is the global batch),
+    the window closing where rank 0 says (at a stack's start).
+
+    Weights by block (`reference.common.draw_rows`): a table that the
+    program row-shards (its own `table_sharding_rules`) is drawn only for
+    the stored rows this rank holds, and handed over as that rank's block;
+    every other table whole.
+
+    The first three steps go through the call that fit makes on this
+    mesh: the graphed stacks' (`train_steps`) where fit stacks steps,
+    else one eager step (`train_step`; a multi-process fit takes one step
+    at a time). Each rank reads them as `FitPath` does; a row-sharded
+    table's first-gradient and change numbers as squares over its own
+    block, which rank 0 sums (`combine`). The reference runs the same
+    three steps on the global batches, holding only the rows they touch
+    (`TouchedRows`), its dropout drawn over each whole global batch as the
+    JAX trainer draws it (the program's ranks draw alike: a cell with
+    dropout on several ranks reads not correct, PERF.md §7)."""
+
+    def __init__(self, cell: Cell, device: torch.device, seed: int, group):
+        super().__init__(cell, device, seed)
+        self.group = group
+        self.world = group.world
+        self.shard = bool(self.config["shard_tables"]) \
+            if "shard_tables" in self.config else False
+
+    def trainer_options(self) -> Dict[str, Any]:
+        return {"mesh": self.group.mesh, "shard_tables": self.shard}
+
+    def feed(self, batch):
+        from recommendflow_tpu_torch.parallel.mesh import shard_batch
+        return shard_batch(self.group.mesh, batch)
+
+    def train_call(self, batch):
+        from recommendflow_tpu_torch.train.trainer import resolve_scan_steps
+        if resolve_scan_steps(None, self.device, self.group.world > 1) > 1:
+            return super().train_call(batch)
+        return self.trainer.train_step(self.state, batch)
+
+    def agree(self, stop: bool) -> bool:
+        return self.group.agree(stop)
+
+    def build_model(self) -> torch.nn.Module:
+        """The program's model holding the benchmark's weights: the dense
+        ones copied in; a table that the program row-shards cut and marked
+        by the program (`mark_row_shard`; one built at a rank's share first
+        given the whole table's shape, without its memory) and handed this
+        rank's block (drawn alone), every other table drawn whole."""
+        from recommendflow_tpu_torch.parallel.mesh import table_sharding_rules
+        from recommendflow_tpu_torch.parallel.sharded_embedding import \
+            mark_row_shard
+        mod = self.cell.config_module
+        mesh, n = self.group.mesh, self.group.mesh.size("dp")
+        model = mod.build_model(self.config, self.device, self.seed)
+        named = self.copy_dense(model, make_dense(self.specs, self.seed, self.device))
+        row_sharded = []
+        with torch.no_grad():
+            for d, g in self.layout.groups.items():
+                name = mod.table_name(d)
+                p = named[name]
+                size = g.logical_rows * d
+                if p.numel() == size:
+                    shape = tuple(p.shape)
+                elif p.numel() * n == size:
+                    shape = (p.shape[0] * n,) + tuple(p.shape[1:])
+                else:
+                    raise ValueError(f"table dim{d}: the program's {tuple(p.shape)} "
+                                     f"is neither the layout's {g.logical_rows} x {d} "
+                                     f"nor one rank's share of it")
+                if p.dtype != getattr(torch, self.layout.table_dtype):
+                    raise ValueError(f"table dim{d}: the program's {p.dtype} is "
+                                     f"not the layout's {self.layout.table_dtype}")
+                spec = table_sharding_rules(
+                    {name: torch.empty(shape, device="meta")}, mesh, "dp")[name]
+                if self.shard and spec:
+                    row_sharded.append(d)
+                    if p.numel() != size:
+                        p.data = p.data[:1].clone().expand(shape)
+                    mark_row_shard(p, mesh, "dp")
+                    share = g.logical_rows // n
+                    t = draw_rows(self.layout, self.seed, d, mesh.rank("dp") * share,
+                                  (mesh.rank("dp") + 1) * share, self.device)
+                else:
+                    t = draw_rows(self.layout, self.seed, d, 0, g.logical_rows,
+                                  self.device)
+                p.data = t.view(p.shape)
+        self.row_sharded = tuple(row_sharded)
+        print(f"rank {self.group.rank}: row-sharded over {n} rank(s): " +
+              (" ".join(f"dim{d}" for d in row_sharded) or "none"),
+              file=sys.stderr, flush=True)
+        return model
+
+    def _first_steps(self) -> Dict[str, Any]:
+        """`FitPath._first_steps` on this rank, each table's numbers as
+        squares: a row-sharded table's over this rank's block, any other
+        table's on rank 0 alone (zero elsewhere)."""
+        out = super()._first_steps()
+        own = self.group.rank == 0
+        out["tables"] = {}
+        for d in self.layout.groups:
+            key = f"table_dim{d}"
+            g, c = out["grad"].pop(key), out["change"].pop(key)
+            out["tables"][key] = (g * g, c * c) if d in self.row_sharded or own \
+                else (0.0, 0.0)
+        return out
+
+    @staticmethod
+    def combine(parts: List[Mapping[str, Any]]) -> Dict[str, Any]:
+        """Every rank's `_first_steps` (rank order) -> `FitPath`'s form:
+        rank 0's losses and dense numbers, each table's norms from the
+        ranks' squares summed in float64."""
+        first = parts[0]
+        grad, change = dict(first["grad"]), dict(first["change"])
+        for key in first["tables"]:
+            grad[key] = float(np.sqrt(sum(float(p["tables"][key][0]) for p in parts)))
+            change[key] = float(np.sqrt(sum(float(p["tables"][key][1]) for p in parts)))
+        return {"loss": list(first["loss"]), "grad": grad, "change": change}
+
+    def reference(self, precision: str = "float32") -> Dict[str, Any]:
+        """The reference's three steps on the global batches, each table as
+        the rows these steps touch, drawn by block (`TouchedRows`)."""
+        touched: Dict[int, List[np.ndarray]] = {}
+        for b in self.pool[:3]:
+            for d, (gids, _) in self.layout.group_ids(b).items():
+                touched.setdefault(d, []).append(gids)
+        tables = {d: TouchedRows(self.layout, self.seed, d, torch.from_numpy(
+            np.concatenate(ids)).to(self.device)) for d, ids in touched.items()}
+        return self.reference_steps(precision, tables,
+                                    make_dense(self.specs, self.seed, self.device))
 
 
 # ------------------------------------------------------------- requests
@@ -564,7 +747,16 @@ def control_answers(path: RequestPath, ref: Mapping) -> Dict[int, Tuple[int, Dic
 
 PATHS = {"fit": FitPath, "recall_search": RecallSearchPath,
          "export_score": ExportScorePath}
+MESH_PATHS = {"fit": MeshFitPath}
 
 
-def make_path(cell: Cell, device, seed: int) -> Path:
-    return PATHS[cell.traffic["path"]](cell, device, seed)
+def make_path(cell: Cell, device, seed: int, group=None) -> Path:
+    """The cell's path; on a mesh (`group`: `harness/ranks.py`'s Group) its
+    mesh form, which only training has."""
+    if group is None:
+        return PATHS[cell.traffic["path"]](cell, device, seed)
+    if cell.traffic["path"] not in MESH_PATHS:
+        raise ValueError(f"{cell.name}: the {cell.traffic['path']!r} path does not "
+                         f"run on a mesh (chips {cell.chips}, shard_tables "
+                         f"{cell.config.get('shard_tables')!r}); only training does")
+    return MESH_PATHS[cell.traffic["path"]](cell, device, seed, group)

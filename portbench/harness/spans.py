@@ -35,12 +35,16 @@ Idle time is read in the traced stretch, which the profiler slows on the
 host: its idle is longer than the untraced window's. So a reader reports
 the share of the traced idle under some spans, or that share of the
 untraced idle a unit (`untraced_idle_ms`), never traced idle time itself.
+Busy and idle are the card's own work's (`TraceSummary.busy_us`): on a
+mesh the time in which the exchange between ranks alone ran counts as
+idle.
 
 Every reader of these returns None where the program recorded no spans,
 where no anchor puts them on the trace's clock, or where they count other
 than the traced units. `view` logs the offset, its spread, the median
 distance of an anchor from its event once aligned, and the units, on
-stderr.
+stderr; `clock_readings` puts the spread, that distance and the wholly
+marked steps in the traced result's `device`.
 """
 from __future__ import annotations
 
@@ -213,7 +217,7 @@ class SpanView:
         self.thread = threads.most_common(1)[0][0] if threads else None
         self.pieces = self_pieces(x for x in self.spans
                                   if x[2].thread == self.thread)
-        busy = clip(merged((d.start, d.end) for d in trace.device), t0, t1)
+        busy = clip(merged((d.start, d.end) for d in trace.work), t0, t1)
         edges = [t0] + [x for s, e in busy for x in (s, e)] + [t1]
         self.gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2)
                      if edges[i + 1] > edges[i]]
@@ -265,6 +269,26 @@ def view(ctx, tops: Sequence[str], unit: Sequence[str],
           f"{anchor_gap_us(spans, ctx.trace)!r} us; {units} units of "
           f"{len(ctx.batches)} traced", file=sys.stderr, flush=True)
     return v if units == len(ctx.batches) else None
+
+
+def clock_readings(ctx, steps: bool = True) -> Dict[str, float]:
+    """For the traced result's `device`: the clock's `offset_spread_us` and
+    `anchor_gap_us` where an anchor puts the spans on the trace's clock, and
+    with `steps` the traced stretch's wholly marked steps (`marked_steps`,
+    `phase_busy_us`); empty where the program recorded no spans. No metric
+    reads them."""
+    spans = program_spans()
+    if not spans or ctx.span is None:
+        return {}
+    out: Dict[str, float] = {}
+    spread, gap = offset_spread_us(spans, ctx.trace), anchor_gap_us(spans, ctx.trace)
+    if spread is not None:
+        out["offset_spread_us"] = spread
+    if gap is not None:
+        out["anchor_gap_us"] = gap
+    if steps:
+        out["marked_steps"] = phase_busy_us(ctx.trace, *ctx.span)[1]
+    return out
 
 
 def untraced_idle_ms(ctx, v: SpanView, names: Iterable[str]) -> Optional[float]:

@@ -8,6 +8,14 @@ busy time inside a stretch, the time of the kernels whose names hold a
 pattern, the device operations that took most time, and the longest gaps
 in which the device idled, named by what the host was doing.
 
+On a mesh the trace also holds the exchange between ranks: NCCL's kernels,
+which spin on the card while they wait for the other ranks, so their time
+grows with the other ranks' delays (and with the profiler's). The busy
+time that the readers read (`busy_us`) is the card's own work, the
+exchange left out; `occupied_us` counts every operation, the exchange
+too, and `exchange_only_us` the time in which the exchange alone ran. A
+trace of one card holds no NCCL kernel, and there the three agree.
+
 On a card the benchmark records the device's activity only (kernels,
 copies, and the CUDA runtime and driver calls that launched them), not the
 host's operators: recording every operator would slow the host path that a
@@ -28,6 +36,12 @@ HOST_CATEGORIES = ("cpu_op", "user_annotation", "python_function",
                    "cuda_runtime", "cuda_driver")
 
 Interval = Tuple[float, float]
+# the exchange between ranks: NCCL's kernels (ncclDevKernel_*, ncclKernel_*)
+EXCHANGE_PREFIX = "nccl"
+
+
+def is_exchange(name: str) -> bool:
+    return name.startswith(EXCHANGE_PREFIX)
 
 
 def merged(spans: Iterable[Interval]) -> List[Interval]:
@@ -79,8 +93,11 @@ class TraceSummary:
         self.host = [HostEvent(str(e.get("name", "?")), str(e.get("cat")),
                                float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                      for e in complete if e.get("cat") in HOST_CATEGORIES]
-        self._busy = merged((d.start, d.end) for d in self.device)
+        self.work = [d for d in self.device if not is_exchange(d.name)]
+        self._busy = merged((d.start, d.end) for d in self.work)
         self._busy_starts = [s for s, _ in self._busy]
+        self._occupied = merged((d.start, d.end) for d in self.device)
+        self.exchange = len(self.work) < len(self.device)
 
     def window(self) -> Optional[Interval]:
         """The traced stretch: from the first event to the end of the last,
@@ -92,7 +109,8 @@ class TraceSummary:
         return min(s for s, _ in spans), max(e for _, e in spans)
 
     def busy_us(self, t0: float, t1: float) -> float:
-        """Device busy time inside [t0, t1)."""
+        """Device busy time inside [t0, t1): the card's own work, the
+        exchange between ranks left out (module docstring)."""
         i = max(bisect_right(self._busy_starts, t0) - 1, 0)
         total = 0.0
         for s, e in self._busy[i:]:
@@ -100,6 +118,15 @@ class TraceSummary:
                 break
             total += max(0.0, min(e, t1) - max(s, t0))
         return total
+
+    def occupied_us(self, t0: float, t1: float) -> float:
+        """Time inside [t0, t1) in which any operation ran on the device,
+        the exchange's too."""
+        return union_us(clip(self._occupied, t0, t1))
+
+    def exchange_only_us(self, t0: float, t1: float) -> float:
+        """Time inside [t0, t1) in which the exchange ran and no work."""
+        return self.occupied_us(t0, t1) - self.busy_us(t0, t1)
 
     def kernel_us(self, patterns: Sequence[str], t0: float, t1: float) -> float:
         """Summed time of the device events inside [t0, t1) whose names hold
@@ -122,10 +149,11 @@ class TraceSummary:
 
     def idle_gaps(self, t0: float, t1: float, n: int = 10) -> List[List[Any]]:
         """[[what the host was doing, seconds], ...]: the longest gaps in
-        the window in which no device event ran, each named by the
+        the window in which no device event ran (the exchange's neither),
+        each named by the
         innermost host event (a runtime or driver call on a card) under way
         at the gap's middle, or "host outside CUDA calls" where none was."""
-        busy = clip(self._busy, t0, t1)
+        busy = clip(self._occupied, t0, t1)
         edges = [t0] + [x for s, e in busy for x in (s, e)] + [t1]
         gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2)
                 if edges[i + 1] > edges[i]]

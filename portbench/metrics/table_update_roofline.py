@@ -9,8 +9,12 @@ once; each distinct stored row so touched has its one float32 accumulator
 read and written once; 4 FLOPs an element. A whole-table pass, or whole
 stored rows where the layout packs several logical rows into one, is work
 these inputs do not need. The sort and duplicate sum before the kernels
-run as PyTorch operations that the trace does not name apart: their time
-is not in the denominator."""
+(one grouped call a step over every split table: the `combine_*` kernels
+and CUB's radix sort) are not in `KERNELS`: their time is not in the
+denominator (`table_update_span_roofline` counts them). None where this
+rank updates rows for the other ranks' ids too (row-sharded tables on
+several ranks: it updates its block's rows that the global batch touches,
+which the rows it is fed do not count)."""
 from portbench.harness.roofline import distinct, share
 from portbench.reference.layout import ITEMSIZE
 
@@ -19,6 +23,8 @@ KERNELS = ("scatter_add_rows_kernel", "rowwise_adagrad_kernel",
 
 
 def read(ctx):
+    if ctx.lookups_for_other_ranks():
+        return None
     seconds = ctx.trace.kernel_us(KERNELS, *ctx.span) * 1e-6
     item = ITEMSIZE[ctx.layout.table_dtype]
     nbytes = flops = 0.0

@@ -5,13 +5,16 @@ phase: from each replay's `rf_span_table_update` marker to its
 `rf_span_end` marker, over the wholly marked steps (`spans.phases`), so
 the sort, the duplicate sum and the zero fill before kernels 2-4 count
 with them. None where the program recorded no spans or marked no whole
-step."""
+step, or where this rank updates rows for the other ranks' ids too
+(`table_update_roofline`)."""
 from portbench.harness import spans
 from portbench.harness.roofline import distinct, share
 from portbench.reference.layout import ITEMSIZE
 
 
 def read(ctx):
+    if ctx.lookups_for_other_ranks():
+        return None
     busy = spans.phases(ctx)
     if not busy or not busy.get("table_update") or not ctx.batches:
         return None

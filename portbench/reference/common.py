@@ -1,5 +1,6 @@
 """The plain reference's shared parts, in plain PyTorch: weights made from a
-seed, matrix products in float32 (or, for the control, in TF32), pooled
+seed (tables whole in one draw, or by fixed blocks of rows for cells on a
+mesh), matrix products in float32 (or, for the control, in TF32), pooled
 embeddings with their rows as leaves, BatchNorm, dropout drawn from the
 device's default generator, Adam and the tables' row-wise Adagrad.
 
@@ -19,6 +20,8 @@ from portbench.reference.layout import Layout
 
 TABLE_INIT_SCALE = 0.05
 _MASK64 = (1 << 64) - 1
+# entries of one drawn block of a table (`draw_rows`): 32 MB in bf16
+BLOCK_ELEMENTS = 1 << 24
 
 # ------------------------------------------------------------ precision
 
@@ -108,6 +111,89 @@ def make_tables(layout: Layout, seed: int, device: torch.device
         t[pads] = 0
         out[dim] = t
     return out
+
+
+def block_rows(dim: int) -> int:
+    """Logical rows in one drawn block of a table of width `dim`."""
+    return max(1, BLOCK_ELEMENTS // dim)
+
+
+def _draw_block(seed: int, dim: int, block: int, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """Block `block` of the table of width `dim`: [block_rows(dim), dim]
+    U[-0.05, 0.05) from its own stream of (seed, dim, block)."""
+    gen = seed_generator(seed, device, (4 << 56) | (dim << 32) | block)
+    out = torch.empty((block_rows(dim), dim), dtype=dtype, device=device)
+    return out.uniform_(-TABLE_INIT_SCALE, TABLE_INIT_SCALE, generator=gen)
+
+
+def draw_logical_rows(layout: Layout, seed: int, dim: int, ids: torch.Tensor
+                      ) -> torch.Tensor:
+    """The rows of sorted distinct logical ids [N] of the stacked table of
+    width `dim`, in the tables' dtype, drawn by block (`_draw_block`: each
+    block that holds one of them drawn once, then dropped), every member
+    table's pad row zero: the same rows whether they are drawn alone, in a
+    rank's block or with the whole table. Cells on a mesh take their
+    tables from here; `make_tables`' one draw a table stays the one-card
+    cells'."""
+    g = layout.groups[dim]
+    dtype = getattr(torch, layout.table_dtype)
+    out = torch.empty((len(ids), dim), dtype=dtype, device=ids.device)
+    n = block_rows(dim)
+    blocks, counts = torch.unique_consecutive(ids // n, return_counts=True)
+    at = 0
+    for b, c in zip(blocks.tolist(), counts.tolist()):
+        block = _draw_block(seed, dim, b, dtype, ids.device)
+        out[at:at + c] = block[ids[at:at + c] - b * n]
+        at += c
+    pads = torch.tensor(sorted(g.offsets.values()), device=ids.device)
+    out[torch.isin(ids, pads)] = 0
+    return out
+
+
+def draw_rows(layout: Layout, seed: int, dim: int, start: int, stop: int,
+              device: torch.device) -> torch.Tensor:
+    """Logical rows [start, stop) of the stacked table of width `dim`
+    (`draw_logical_rows`)."""
+    return draw_logical_rows(layout, seed, dim,
+                             torch.arange(start, stop, device=device))
+
+
+class TouchedRows:
+    """The stored rows of one stacked table that some batches touch, every
+    logical row of each (`values` [S*P, dim], drawn by `draw_logical_rows`),
+    in the order of their stored ids (`stored` [S], sorted): a table that is
+    never held whole. Indexed by global logical ids as the whole table is
+    (`pooled_features`); `positions` maps stored ids to rows of
+    `values.view(S, P*dim)`, where the row-wise Adagrad updates them."""
+
+    def __init__(self, layout: Layout, seed: int, dim: int,
+                 logical_ids: torch.Tensor):
+        self.pack = layout.groups[dim].pack
+        self.stored = torch.unique(logical_ids.long() // self.pack)
+        lanes = torch.arange(self.pack, device=self.stored.device)
+        logical = (self.stored[:, None] * self.pack + lanes[None, :]).reshape(-1)
+        self.values = draw_logical_rows(layout, seed, dim, logical)
+
+    def positions(self, stored_ids: torch.Tensor) -> torch.Tensor:
+        return torch.searchsorted(self.stored, stored_ids.long())
+
+    def __getitem__(self, logical_ids: torch.Tensor) -> torch.Tensor:
+        ids = logical_ids.long()
+        return self.values[self.positions(ids // self.pack) * self.pack
+                           + ids % self.pack]
+
+
+def table_store(table) -> torch.Tensor:
+    """The tensor that holds a table's rows: the whole table, or a
+    `TouchedRows`' values."""
+    return table.values if isinstance(table, TouchedRows) else table
+
+
+def store_positions(table, stored_ids: torch.Tensor) -> torch.Tensor:
+    """Stored ids -> rows of `table_store(table)` viewed by stored row."""
+    return table.positions(stored_ids) if isinstance(table, TouchedRows) \
+        else stored_ids
 
 
 def make_dense(specs: Sequence[Tuple[str, Tuple[int, ...], str]], seed: int,

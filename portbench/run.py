@@ -9,10 +9,16 @@ of standard output, one JSON object: correct, attempted, failed, metrics
 (--trace 0: the cell's end-to-end metrics; --trace 1: its per-layer
 metrics), device, breakdown (--trace 1), power_limit and checks.
 
+A cell on several cards (its `chips`), or one whose configuration says
+`shard_tables`, runs on a mesh: this process is rank 0 and starts ranks
+1..N-1 as its children with the same arguments, one process a card over
+NCCL (`portbench/harness/ranks.py`); only rank 0 prints. A rank that fails
+ends every rank, and rank 0 exits 1 with no result.
+
 Exits 3, printing no result, without a card or with fewer cards than the
-cell asks for; 4 if JAX or the JAX package was loaded; 5 if the program
-(recommendflow_tpu_torch) is not in the checkout; any other failure raises
-(exit 1).
+cell asks for; 4 if JAX or the JAX package was loaded (by any rank); 5 if
+the program (recommendflow_tpu_torch) is not in the checkout; any other
+failure raises (exit 1).
 """
 from __future__ import annotations
 
@@ -21,7 +27,6 @@ import time
 STARTED = time.monotonic()
 
 import argparse  # noqa: E402
-import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 
@@ -65,18 +70,10 @@ def main(argv=None) -> int:
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 3
-    from portbench.harness.run_cell import forbidden_modules, run
-    result = run(cell, args.seed, args.seconds, bool(args.trace),
-                 torch.device("cuda", 0), STARTED)
-    loaded = forbidden_modules()
-    if loaded:
-        print(f"portbench: the run loaded {loaded}", file=sys.stderr)
-        return 4
-    for name, c in result["checks"].items():
-        print(f"check {name} = {c['value']!r} (limit {c['limit']!r})",
-              file=sys.stderr)
-    print(json.dumps(result), flush=True)
-    return 0
+    from portbench.harness.run_cell import launch
+    return launch(cell, args.seed, args.seconds, bool(args.trace), STARTED,
+                  [sys.executable, os.path.abspath(__file__)] +
+                  list(sys.argv[1:] if argv is None else argv))
 
 
 if __name__ == "__main__":

@@ -36,7 +36,7 @@ import pytest
 from portbench.harness import spans as S
 from portbench.harness.trace import TraceSummary
 from portbench.tests.test_trace_and_metrics import (BATCH, PEAKS, Stub, layout,
-                                                    reader, x)
+                                                    on_mesh, reader, x)
 
 MAIN, WORKER = 11, 22
 
@@ -103,13 +103,13 @@ SERVE_SPANS = [s for r, at in enumerate((0, 500)) for s in (
     span(10 * r + 6, "serve.fetch", at + 170, at + 300, 10 * r + 1))]
 
 
-def ctx(events, units):
+def ctx(events, units, **mesh):
     t = TraceSummary(events)
     c = types.SimpleNamespace(trace=t, span=t.window(), unit_s=1e-3,
                               batches=[BATCH] * units, layout=layout(),
                               args={}, traffic={}, reference=Stub, peaks=PEAKS)
     c.busy_per_unit_s = lambda: t.busy_us(*c.span) * 1e-6 / units
-    return c
+    return on_mesh(c, **mesh)
 
 
 @pytest.fixture
@@ -340,3 +340,19 @@ def test_on_the_card_spans_count_the_traced_units_and_hold_their_launches(
     for s, h in zip(replays, launches):
         assert s.start_ns / 1e3 + off <= h.start and h.end <= s.end_ns / 1e3 + off
     assert S.anchor_gap_us(spans, w.trace) <= 100.0
+
+
+def test_phase_readers_of_the_embedding_on_a_mesh(recorded):
+    """A row-sharded table is looked up in the forward phase: the gather
+    phase's roofline reads nothing, on any number of ranks. The table
+    update's reads nothing where a rank updates rows for the others' ids,
+    and as on one card where the tables are held whole on every rank."""
+    recorded(TRAIN_SPANS)
+    gather = reader("gather_span_roofline.train")
+    update = reader("table_update_span_roofline")
+    assert gather.read(ctx(TRAIN_EVENTS, 2, world=1, row_sharded=(64,))) is None
+    assert gather.read(ctx(TRAIN_EVENTS, 2, world=4, row_sharded=(64,))) is None
+    assert update.read(ctx(TRAIN_EVENTS, 2, world=4, row_sharded=(64,))) is None
+    for name, want in TRAIN_CASES[:2]:
+        got = reader(name).read(ctx(TRAIN_EVENTS, 2, world=4))
+        assert math.isclose(got, want, rel_tol=1e-9), (name, got, want)

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from portbench.harness.cell import Cell
+from portbench.harness.run_cell import Context
 from portbench.harness.trace import TraceSummary, union_us
 from portbench.reference.layout import Layout
 
@@ -83,14 +84,21 @@ class Stub:
         return 1e6
 
 
-def ctx(traffic, events=EVENTS, unit_s=1000e-6):
+def on_mesh(c, world=1, row_sharded=()):
+    """A stand-in context's mesh: `world` ranks, `row_sharded` table widths."""
+    c.world, c.row_sharded = world, tuple(row_sharded)
+    c.lookups_for_other_ranks = types.MethodType(Context.lookups_for_other_ranks, c)
+    return c
+
+
+def ctx(traffic, events=EVENTS, unit_s=1000e-6, **mesh):
     t = TraceSummary(events)
     units = traffic.pop("units", 1)
-    return types.SimpleNamespace(trace=t, span=t.window(), unit_s=unit_s,
-                                 batches=[BATCH] * units,
-                                 busy_per_unit_s=lambda: t.busy_us(*t.window()) * 1e-6 / units,
-                                 layout=layout(), args={}, traffic=traffic,
-                                 reference=Stub, peaks=PEAKS)
+    return on_mesh(types.SimpleNamespace(
+        trace=t, span=t.window(), unit_s=unit_s, batches=[BATCH] * units,
+        busy_per_unit_s=lambda: t.busy_us(*t.window()) * 1e-6 / units,
+        layout=layout(), args={}, traffic=traffic, reference=Stub, peaks=PEAKS),
+        **mesh)
 
 
 def reader(name):
@@ -137,10 +145,11 @@ def test_reader_counts(name, traffic, want):
 @pytest.mark.parametrize("name", [c[0] for c in CASES])
 def test_reader_finds_nothing_returns_nothing(name):
     empty = TraceSummary([x("cudaStreamSynchronize", "cuda_runtime", 0, 100)])
-    c = types.SimpleNamespace(trace=empty, span=(0.0, 100.0), unit_s=None,
-                              busy_per_unit_s=lambda: 0.0,
-                              batches=[], layout=layout(), args={},
-                              traffic={"rows": 2}, reference=Stub, peaks=PEAKS)
+    c = on_mesh(types.SimpleNamespace(trace=empty, span=(0.0, 100.0), unit_s=None,
+                                      busy_per_unit_s=lambda: 0.0,
+                                      batches=[], layout=layout(), args={},
+                                      traffic={"rows": 2}, reference=Stub,
+                                      peaks=PEAKS))
     assert reader(name).read(c) is None
 
 
@@ -154,3 +163,51 @@ def test_reader_of_a_stretch_without_device_work_returns_nothing(name):
         assert got is not None and got > 0
     else:
         assert got is None
+
+
+# On a mesh: NCCL's all-reduce 1650-1900 over the sgemm's 1600-1700, so the
+# exchange alone runs 1700-1900. The work's busy time stays 600 of the
+# window's 2000 us; 1400 without work, 200 of it the exchange's. An
+# untraced step of 1000 us has 400 us without work: 400 * 200 / 1400.
+NCCL = x("ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)",
+         "kernel", 1650, 250)
+
+
+def test_the_exchange_between_ranks_is_not_the_cards_work():
+    t = TraceSummary(EVENTS + [NCCL])
+    assert t.exchange and not TraceSummary(EVENTS).exchange
+    assert t.busy_us(1000, 3000) == 600.0
+    assert t.occupied_us(1000, 3000) == 800.0
+    assert t.exchange_only_us(1000, 3000) == 200.0
+    assert t.exchange_only_us(1000, 1800) == 100.0
+    # the gaps are those in which nothing ran, the exchange neither
+    assert [round(g[1] * 1e6) for g in t.idle_gaps(1000, 3000)][:2] == [600, 400]
+    assert [NCCL["name"], 250e-6] in t.top_ops(1000, 3000)    # by its own name
+    # on one card the three agree
+    one = TraceSummary(EVENTS)
+    assert one.occupied_us(1000, 3000) == one.busy_us(1000, 3000) == 600.0
+    assert one.exchange_only_us(1000, 3000) == 0.0
+
+
+def test_exposed_exchange_and_idle_share_on_a_mesh():
+    exposed = reader("nccl_exposed_ms.train")
+    c = ctx({}, events=EVENTS + [NCCL], world=4)
+    assert math.isclose(exposed.read(c), 1e3 * 400e-6 * 200 / 1400, rel_tol=1e-12)
+    # the exchange's own time counts as idle: the work's share is as before
+    assert math.isclose(reader("idle_share.train").read(c), 40.0, rel_tol=1e-12)
+    # one card: no exchange to read
+    assert exposed.read(ctx({})) is None
+    # the exchange wholly under the work: none of it exposed
+    hidden = dict(NCCL, ts=1250, dur=200)
+    assert exposed.read(ctx({}, events=EVENTS + [hidden], world=4)) == 0.0
+
+
+@pytest.mark.parametrize("name", ["gather_rows_roofline.train", "table_update_roofline"])
+def test_rows_fed_to_a_rank_that_looks_up_for_all_count_nothing(name):
+    """Row-sharded tables on several ranks: each rank's kernels serve the
+    global batch's ids in its block, which its fed rows do not count. One
+    rank, or tables held whole on every rank, read as on one card."""
+    want = reader(name).read(ctx({}))
+    assert reader(name).read(ctx({}, world=2, row_sharded=(64,))) is None
+    assert reader(name).read(ctx({}, world=1, row_sharded=(64,))) == want
+    assert reader(name).read(ctx({}, world=4)) == want
