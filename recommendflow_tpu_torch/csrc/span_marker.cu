@@ -5,6 +5,12 @@
 // rf_span_<phase>. The order of the switch is ops/cuda/span_marker.py's
 // PHASES.
 //
+// Region markers mark a stretch inside a phase (the low-rank cross's
+// forward and backward): rf_region_<region>, a start and an end each, a
+// family apart from rf_span_, so a reader that pairs the six phase
+// markers in order never meets one. The order of their switch is
+// ops/cuda/span_marker.py's REGIONS.
+//
 // Cost: a launch of one thread that does nothing, about a microsecond or
 // two of the card's time each (PERF.md).
 
@@ -26,6 +32,23 @@ extern "C" int rf_span_mark(int phase, void* stream) {
     case 3: rf_span_optimizer<<<1, 1, 0, s>>>(); break;
     case 4: rf_span_table_update<<<1, 1, 0, s>>>(); break;
     case 5: rf_span_end<<<1, 1, 0, s>>>(); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" __global__ void rf_region_cross_forward() {}
+extern "C" __global__ void rf_region_cross_forward_end() {}
+extern "C" __global__ void rf_region_cross_backward() {}
+extern "C" __global__ void rf_region_cross_backward_end() {}
+
+extern "C" int rf_region_mark(int region, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (region) {
+    case 0: rf_region_cross_forward<<<1, 1, 0, s>>>(); break;
+    case 1: rf_region_cross_forward_end<<<1, 1, 0, s>>>(); break;
+    case 2: rf_region_cross_backward<<<1, 1, 0, s>>>(); break;
+    case 3: rf_region_cross_backward_end<<<1, 1, 0, s>>>(); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -27,10 +27,13 @@ from recommendflow_tpu_torch.losses.match import global_batch_loss
 from recommendflow_tpu_torch.ops.embedding import (IMAGE_PATCH, _global_ids,
                                                    concat_tower, embed_batch,
                                                    gather_group,
-                                                   init_group_table)
+                                                   init_group_block,
+                                                   init_group_table,
+                                                   table_shape)
 from recommendflow_tpu_torch.ops.mlp import ExpertsDense
 from recommendflow_tpu_torch.parallel.distributed import all_gather_nograd
-from recommendflow_tpu_torch.parallel.mesh import active_data_parallel
+from recommendflow_tpu_torch.parallel.mesh import (Mesh, active_data_parallel,
+                                                   table_sharding_rules)
 from recommendflow_tpu_torch.train.freq import freq_init, freq_update, log_q
 from recommendflow_tpu_torch.utils.str_parser import str2fn
 
@@ -50,16 +53,33 @@ class FeatureEmbedder(nn.Module):
     `ImageEncoder` named `vit_{name}` (the class defaults, out_dim the
     slot's dim). The JAX embedder calls its ViT without `training`, so the
     ViT's dropout never drops: here it stays in eval mode whatever mode the
-    model is put in."""
+    model is put in.
+
+    With a `mesh`, each stacked table that the mesh's rules row-shard over
+    'dp' (`parallel.mesh.table_sharding_rules`) is made as this rank's
+    block alone (`init_group_block`; its `whole_rows` the whole table's
+    stored rows): a table larger than one card is never made whole.
+    `Trainer(mesh=mesh, shard_tables=True)` marks it (`mark_row_shard`); a
+    Trainer that does not row-shard it refuses the model."""
 
     def __init__(self, schema: BatchSchema, generator: torch.Generator,
-                 device=None):
+                 device=None, mesh: Optional[Mesh] = None):
         super().__init__()
         self.schema = schema
         dtype = getattr(schema, "table_dtype", "float32")
         for dim, group in schema.groups.items():
-            table = init_group_table(generator, group, dtype, device=device)
-            self.register_parameter(f"table_dim{dim}", nn.Parameter(table))
+            name = f"table_dim{dim}"
+            whole = table_shape(group, dtype)
+            if mesh is not None and table_sharding_rules(
+                    {name: torch.empty(whole, device="meta")}, mesh)[name]:
+                param = nn.Parameter(init_group_block(
+                    generator, group, mesh.rank("dp"), mesh.size("dp"), dtype,
+                    device=device))
+                param.whole_rows = whole[0]
+            else:
+                param = nn.Parameter(init_group_table(generator, group, dtype,
+                                                      device=device))
+            self.register_parameter(name, param)
         vit = getattr(schema, "image_encoder", "linear") == "vit"
         self._images: List[str] = []
         for name in schema.order:

@@ -7,3 +7,4 @@ from recommendflow_tpu_torch.models.ranking.essm import Essm, ESSM, Esmm
 from recommendflow_tpu_torch.models.ranking.din import Din, DIN
 from recommendflow_tpu_torch.models.ranking.tabtransformer import TabTransformer
 from recommendflow_tpu_torch.models.ranking.esim import Esim
+from recommendflow_tpu_torch.models.ranking.dlrm import DlrmDcnV2

@@ -104,6 +104,35 @@ def init_group_table(generator: torch.Generator, group: TableGroup,
     return flat.view(rows // p, p * group.dim)
 
 
+def init_group_block(generator: torch.Generator, group: TableGroup,
+                     index: int, count: int, dtype: DType = torch.float32,
+                     scale: float = 0.05,
+                     device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """Block `index` of `count` of one dim group's stacked table, in the
+    stored layout: its stored rows [index * S, (index + 1) * S), S the
+    stored rows over `count` (which must divide them), U[-scale, scale)
+    from a generator of the block's own (seeded from `generator`'s seed and
+    `index`), each member table's pad row that falls in the block zeroed.
+    A rank's block of a row-sharded table made without the whole table:
+    its values are not the whole table's draw of those rows."""
+    dtype = torch_dtype(dtype)
+    stored, width = table_shape(group, dtype)
+    if stored % count:
+        raise ValueError(f"{stored} stored rows of dim{group.dim} do not "
+                         f"split into {count} blocks")
+    p = width // group.dim
+    rows = stored // count * p
+    start = index * rows
+    gen = torch.Generator(device=device).manual_seed(
+        (generator.initial_seed() * 0x9E3779B1 + index + 1) & ((1 << 63) - 1))
+    flat = torch.empty((rows, group.dim), dtype=dtype, device=device)
+    flat.uniform_(-scale, scale, generator=gen)
+    pads = [o - start for o in group.offsets if start <= o < start + rows]
+    if pads:
+        flat[torch.as_tensor(pads, dtype=torch.long, device=device)] = 0
+    return flat.view(rows // p, width)
+
+
 class _TakeRows(torch.autograd.Function):
     """rows = table[ids]; the backward sums the gradients of duplicate ids
     (sorted, in f32, fixed size, the unique count kept on the device) and

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from recommendflow_tpu_torch.utils.profiling import mark_region
+
 
 def _normal(shape, generator: Optional[torch.Generator], device,
             std: float = 0.05) -> nn.Parameter:
@@ -97,6 +99,49 @@ class CrossNetwork(nn.Module):
             xw = x @ getattr(self, f"w{i}")            # [B, 1]
             x = x0 * xw + getattr(self, f"b{i}") + x
         return x
+
+
+class LowRankCrossNet(nn.Module):
+    """DCN-V2's low-rank matrix cross (Wang et al. 2021, arXiv 2008.13535):
+    x_{l+1} = x0 * (U_l (V_l x_l) + b_l) + x_l, with V_l [rank, width]
+    (`V_{l}`, no bias) and U_l [width, rank] with its bias b_l (`U_{l}`),
+    both nn.Linear so that `models.base.init_dense_` draws them.
+
+    Under autograd the card marks where the cross's forward starts and
+    ends and where its backward starts and ends (hooks on its output's and
+    x0's gradients): `utils/profiling.py:mark_region`, which launches only
+    while spans are recorded or a graph captures."""
+
+    def __init__(self, width: int, num_layers: int = 3, rank: int = 512,
+                 device=None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"V_{i}", nn.Linear(width, rank, bias=False,
+                                                device=device))
+            self.add_module(f"U_{i}", nn.Linear(rank, width, device=device))
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        marked = x0.requires_grad and torch.is_grad_enabled()
+        if marked:
+            mark_region(x0.device, "cross_forward")
+            x0.register_hook(_marker_hook(x0.device, "cross_backward_end"))
+        x = x0
+        for i in range(self.num_layers):
+            u = getattr(self, f"U_{i}")(getattr(self, f"V_{i}")(x))
+            x = x0 * u + x
+        if marked:
+            mark_region(x0.device, "cross_forward_end")
+            x.register_hook(_marker_hook(x0.device, "cross_backward"))
+        return x
+
+
+def _marker_hook(device: torch.device, region: str):
+    """A gradient hook that marks `region` on the card and leaves the
+    gradient as it is."""
+    def hook(grad):
+        mark_region(device, region)
+    return hook
 
 
 class CIN(nn.Module):

@@ -19,6 +19,12 @@ of `recommendflow_tpu/parallel/sharded_embedding.py`).
 of the batch, the ids are all-gathered first and each rank keeps its own
 slice of the result (ops/embedding.py:gather_group calls it for a table
 that `shard_tables` marked).
+
+Spans (utils/profiling.py:span, recorded under a profiler only):
+`shard.lookup` over `gather_local_rows`, counting the global `ids` looked
+up and the `exchange_bytes` its collectives hand NCCL (the all-gather's
+output and the all-reduce's buffer), and `shard.lookup_grad` over the
+backward's all-reduce of the rows' gradients, with its `exchange_bytes`.
 """
 from __future__ import annotations
 
@@ -28,9 +34,10 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from recommendflow_tpu_torch.data.schema import TableGroup
-from recommendflow_tpu_torch.parallel.distributed import (all_gather_nograd,
-                                                          all_reduce_sum)
+from recommendflow_tpu_torch.parallel.distributed import (_AllReduceSum,
+                                                          all_gather_nograd)
 from recommendflow_tpu_torch.parallel.mesh import Mesh, is_table_param
+from recommendflow_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -64,7 +71,18 @@ def local_gather_psum(table_shard: torch.Tensor, flat_ids: torch.Tensor,
     from recommendflow_tpu_torch.ops.embedding import take_rows
     rows = take_rows(logical, safe.contiguous())
     rows = rows.float() * mine[:, None].float()
-    return all_reduce_sum(rows, mesh.group(axis))
+    return _RowsSum.apply(rows, mesh.group(axis))
+
+
+class _RowsSum(_AllReduceSum):
+    """`all_reduce_sum` of the looked-up rows, its backward (the all-reduce
+    of their gradients) under the `shard.lookup_grad` span."""
+
+    @staticmethod
+    def backward(ctx, g):
+        with span("shard.lookup_grad") as s:
+            s.add(exchange_bytes=g.numel() * g.element_size())
+            return _AllReduceSum.backward(ctx, g)
 
 
 def sharded_gather_group(mesh: Mesh, axis: str, table_shard: torch.Tensor,
@@ -85,8 +103,12 @@ def gather_local_rows(table_shard: torch.Tensor, shard: RowShard,
     looked up by `local_gather_psum` and this rank's slice is kept."""
     mesh, axis = shard.mesh, shard.axis
     flat = ids.reshape(-1)
-    everyone = all_gather_nograd(flat, mesh.group(axis))
-    rows = local_gather_psum(table_shard, everyone, group.dim, mesh, axis)
+    with span("shard.lookup") as s:
+        everyone = all_gather_nograd(flat, mesh.group(axis))
+        rows = local_gather_psum(table_shard, everyone, group.dim, mesh, axis)
+        s.add(ids=everyone.numel(),
+              exchange_bytes=everyone.numel() * everyone.element_size()
+              + rows.numel() * rows.element_size())
     n, r = flat.shape[0], mesh.rank(axis)
     return rows[r * n:(r + 1) * n].view(tuple(ids.shape) + (group.dim,))
 
@@ -113,15 +135,22 @@ def mark_row_shard(param: torch.nn.Parameter, mesh: Mesh, axis: str) -> None:
     """Replace a whole parameter's data with this rank's block of its
     leading axis, in place (the optimizer keeps its reference), and mark it:
     a marked table is gathered by the embed pass through
-    `gather_local_rows`, marked experts by ops/mlp.py:ExpertsMLP."""
-    total = param.shape[0]
+    `gather_local_rows`, marked experts by ops/mlp.py:ExpertsMLP. A
+    parameter built at this rank's block alone (its `whole_rows` the
+    whole's leading size, as `FeatureEmbedder(mesh=)` makes a table) keeps
+    its data."""
+    total = getattr(param, "whole_rows", param.shape[0])
     n = mesh.size(axis)
     if total % n:
         raise ValueError(f"{total} stored rows do not split over {n} ranks")
     s = total // n
     r = mesh.rank(axis)
-    with torch.no_grad():
-        param.data = param.data[r * s:(r + 1) * s].clone()
+    if param.shape[0] == total:
+        with torch.no_grad():
+            param.data = param.data[r * s:(r + 1) * s].clone()
+    elif param.shape[0] != s:
+        raise ValueError(f"{param.shape[0]} rows are neither the whole "
+                         f"{total} nor a block of {s} over {n} ranks")
     param.row_shard = RowShard(mesh, axis, total)
 
 

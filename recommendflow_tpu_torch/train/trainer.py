@@ -653,6 +653,14 @@ class Trainer:
         dims = self.plan(sample_batch)
         if self.mesh is not None:
             self._place_on_mesh()
+        blocks = [name for name, p in self.model.named_parameters()
+                  if getattr(p, "whole_rows", None) is not None
+                  and getattr(p, "row_shard", None) is None]
+        if blocks:
+            raise ValueError(
+                f"{blocks} hold this rank's block of rows alone (built with "
+                f"mesh=), but this Trainer does not row-shard them: give it "
+                f"that mesh and shard_tables=True")
         tables = table_params(self.model)
         # an accumulator follows its table's placement (a row block)
         table_acc = {f"dim{d}": init_accumulator(tables[d]) for d in dims}
@@ -692,10 +700,13 @@ class Trainer:
         """Every rank starts from rank 0's weights and buffers (broadcast);
         under shard_tables each table the rules shard keeps this rank's
         block of rows, under shard_experts each expert leaf this rank's
-        block of experts (`mark_row_shard`). Idempotent."""
+        block of experts (`mark_row_shard`). A table built at this rank's
+        block alone (`whole_rows`) is not broadcast, and the rules judge it
+        at the whole's shape. Idempotent."""
         with torch.no_grad():
             for t in list(self.model.parameters()) + list(self.model.buffers()):
-                if getattr(t, "row_shard", None) is None:
+                if getattr(t, "row_shard", None) is None \
+                        and getattr(t, "whole_rows", None) is None:
                     torch.distributed.broadcast(t.data, src=0)
         named = {name: p for name, p in self.model.named_parameters()
                  if getattr(p, "row_shard", None) is None}
@@ -704,7 +715,10 @@ class Trainer:
                 (self.shard_experts, "ep", expert_sharding_rules)):
             if not on:
                 continue
-            leaves = {n: p for n, p in named.items()
+            leaves = {n: p if getattr(p, "whole_rows", None) is None else
+                      torch.empty((p.whole_rows,) + tuple(p.shape[1:]),
+                                  device="meta")
+                      for n, p in named.items()
                       if axis == "ep" or _TABLE.search(n)}
             specs = rules(leaves, self.mesh, axis)
             sharded = [n for n, spec in specs.items() if spec]

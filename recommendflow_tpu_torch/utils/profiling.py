@@ -20,6 +20,10 @@
     device work, as a one-thread empty kernel named `rf_span_<phase>`
     (ops/cuda/span_marker.py), so a device trace shows each phase replay by
     replay on the card's own timeline;
+  * `mark_region(device, region)`: the same for a stretch inside a phase
+    (the low-rank cross's forward and backward), one empty kernel named
+    `rf_region_<region>` at its start and another at its end, a family of
+    its own: a reader that pairs the phase markers sees none of these;
   * `memory_percent()`: the host's memory in use, from /proc/meminfo.
 
 The profiler does not list every launch of the port's own kernels: they come
@@ -177,6 +181,18 @@ def mark_phase(device: torch.device, phase: str) -> None:
         from recommendflow_tpu_torch.ops.cuda.span_marker import \
             launch_marker
         launch_marker(phase, device)
+
+
+def mark_region(device: torch.device, region: str) -> None:
+    """Mark `region`'s start (or, for a name ending in `_end`, its end) on
+    the current stream, when and where `mark_phase` would mark a phase.
+    The regions are ops/cuda/span_marker.py's REGIONS."""
+    if device.type != "cuda":
+        return
+    if recording() or torch.cuda.is_current_stream_capturing():
+        from recommendflow_tpu_torch.ops.cuda.span_marker import \
+            launch_region
+        launch_region(region, device)
 
 
 def start_trace(logdir: str) -> torch.profiler.profile:
