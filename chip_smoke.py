@@ -45,6 +45,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                             calls; one grouped call each (launches by table
                             count); the grouped call's graph replay timed
                             against the per-table PyTorch path it replaced;
+  6c. pooled_lookup         the row-sharded lookup's kernels for sum-pooled
+                            bags at DLRM-DCNv2's shape (portbench/configs/
+                            dlrm_dcnv2.json): rank 1's block of four (51M
+                            bf16 rows of 128), the global batch's 65536 x
+                            214 Zipf(1.2) ids in 26 bags an example, all
+                            checked before they are timed: the owned rows'
+                            gather bitwise its plain version, the pooled
+                            backward bitwise across two calls and its
+                            touched rows within one bf16 rounding of the
+                            exact (float64) sums of their bf16-rounded
+                            terms; then both timed beside the bytes each
+                            needs at the card's bandwidth;
   7. flash_attention        against its plain version, f32 and bf16: at the
                             encoder's shape [256, 12, 64, 64] (q, k, v the
                             strided split_heads views of [B, L, H*D], key
@@ -595,6 +607,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_CONF = os.path.join(ROOT, "conf", "bench_recall.yaml")
 DEMO_CONF = os.path.join(ROOT, "conf", "demo_recall.yaml")
+# DLRM-DCNv2's fields as the four-card benchmark cell runs them
+DLRM_CONF = os.path.join(ROOT, "portbench", "configs", "dlrm_dcnv2.json")
 RANK_CONF = os.path.join(ROOT, "conf", "bench_ranking.yaml")
 DEMO_RANK_CONF = os.path.join(ROOT, "conf", "demo_ranking.yaml")
 DEMO_DIN_CONF = os.path.join(ROOT, "conf", "demo_din.yaml")
@@ -698,7 +712,7 @@ TEXT_CPU_TOL = 1e-4
 TEXT_LR = 2e-5
 PHASES = ("build", "gather_rows", "grouped_score_max", "scatter_add_rows",
           "rowwise_adagrad_update", "sparse_adagrad_apply",
-          "combine_row_grads", "flash_attention",
+          "combine_row_grads", "pooled_lookup", "flash_attention",
           "slice", "train", "ranking", "train_options", "long_runs",
           "dispatch", "ranking_zoo",
           "attention_ranking", "text_recall", "simbert", "matching_zoo",
@@ -1429,6 +1443,102 @@ def main(argv=None) -> int:
             log("combine_row_grads", layout=name, **rec)
             del got, again, plain, tables
         errs["combine_row_grads"] = 0.0
+
+    # ---------------------------------------------------- 6c. pooled_lookup
+    if "pooled_lookup" in phases:
+        from recommendflow_tpu_torch.ops.cuda import pooled_lookup as k_pool
+        with open(DLRM_CONF) as f:
+            fields = [x for x in json.load(f)["features"]
+                      if x["kind"] == "sparse"]
+        world, rank = 4, 1
+        n_ex = 65536 if not rehearse else 64
+        f_rows = [x["rows"] if not rehearse else 2 + x["rows"] // 100_000
+                  for x in fields]
+        lens = [x["max_len"] for x in fields]
+        dim = fields[0]["dim"]
+        pads = np.cumsum([0] + f_rows[:-1])
+        # the stored table's rows: pairs of bf16 rows of 128, padded to 256
+        total = -(-int(sum(f_rows)) // 512) * 512
+        rows, start = total // world, rank * total // world
+        prng = np.random.default_rng(23)
+        ids_np = np.concatenate(
+            [(prng.zipf(1.2, (n_ex, ln)) - 1) % r + p
+             for ln, r, p in zip(lens, f_rows, pads)], axis=1).astype(np.int32)
+        ids = torch.from_numpy(ids_np).to(dev)
+        del ids_np
+        bags = k_pool.Bags(tuple(int(x) for x in np.cumsum([0] + lens[:-1])),
+                           tuple(lens), tuple(int(p) for p in pads))
+        block = torch.empty((rows, dim), dtype=torch.bfloat16, device=dev)
+        block.uniform_(-0.05, 0.05, generator=gen)
+        bag_of, pad_of = bags.columns(dev)
+        local = ids.long() - start
+        keep = (ids > pad_of) & (local >= 0) & (local < rows)
+        owned = local[keep]
+        distinct = int(torch.unique(owned).numel())
+        mine = local[(local >= 0) & (local < rows)]
+        distinct_any = int(torch.unique(mine).numel())
+        named = int((torch.zeros((n_ex, bags.count), device=dev).index_add_(
+            1, bag_of, keep.float()) > 0).sum())
+        longest = int(torch.bincount(owned).max()) if owned.numel() else 0
+        # the check, on the whole batch
+        flat = ids.view(-1)
+        got = k_pool.gather_owned(block, flat, start)
+        want = k_pool.gather_owned_plain(block, flat, start)
+        fwd_bitwise = bool(torch.equal(got.view(torch.int16),
+                                       want.view(torch.int16)))
+        del got, want
+        g = torch.randn((n_ex, bags.count, dim), generator=gen,
+                        device=dev) * 0.01
+        grad = torch.zeros_like(block)
+        k_pool.pooled_row_grads(g, ids, bags, start, grad)
+        touched, inverse = torch.unique(owned, return_inverse=True)
+        first = grad[touched].clone()
+        grad[touched] = 0
+        k_pool.pooled_row_grads(g, ids, bags, start, grad)
+        bitwise = bool(torch.equal(first.view(torch.int16),
+                                   grad[touched].view(torch.int16)))
+        terms = g[torch.arange(n_ex, device=dev)[:, None].expand_as(ids)[keep],
+                  bag_of.expand_as(ids)[keep]]
+        exact = torch.zeros((touched.numel(), dim), dtype=torch.float64,
+                            device=dev).index_add_(
+            0, inverse, terms.to(torch.bfloat16).double())
+        bwd_ulps = ulps(torch, first, exact.float())
+        require(fwd_bitwise, "gather_owned differs from its plain version")
+        require(bitwise, "pooled_row_grads differs between two calls")
+        require(bwd_ulps <= 1.0, f"pooled_row_grads: {bwd_ulps} bf16 ulps "
+                f"from the exact sums")
+        rec = dict(block_rows=rows, start=start, examples=n_ex,
+                   ids=int(ids.numel()), bags=n_ex * bags.count,
+                   owned_ids=int(owned.numel()), distinct_rows=distinct,
+                   bags_named=named, longest_run=longest,
+                   fwd_bitwise=fwd_bitwise,
+                   bwd_bitwise_across_calls=bitwise, bwd_ulps=bwd_ulps)
+        del first, exact, terms, inverse, touched, grad, local, keep, \
+            owned, mine
+        if not rehearse:
+            timer = Timer(torch, 10)
+            grad = torch.zeros_like(block)
+            # the bytes each call needs: the ids; the distinct owned rows
+            # read, every id's row written (forward); the bags' gradient
+            # rows that owned ids name read, the distinct rows written
+            # (backward)
+            fwd_bytes = ids.numel() * (4 + dim * 2) + distinct_any * dim * 2
+            bwd_bytes = ids.numel() * 4 + named * dim * 4 + distinct * dim * 2
+            fwd_ms = timer.median_ms(
+                lambda i: k_pool.gather_owned(block, flat, start))
+            bwd_ms = timer.median_ms(
+                lambda i: k_pool.pooled_row_grads(g, ids, bags, start, grad))
+            rec.update(
+                forward_ms=fwd_ms, forward_bytes=fwd_bytes,
+                forward_bound_ms=fwd_bytes / bw * 1e3,
+                backward_ms=bwd_ms, backward_bytes=bwd_bytes,
+                backward_bound_ms=bwd_bytes / bw * 1e3, bound_by="bytes",
+                bandwidth=bw, reps=10)
+            del grad
+        log("pooled_lookup", **rec)
+        del block, g, ids
+        if not rehearse:
+            torch.cuda.empty_cache()
 
     # ----------------------------------------- encoder inputs (7, 23-27)
     cfg = E["config"]

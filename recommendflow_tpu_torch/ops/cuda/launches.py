@@ -14,8 +14,9 @@ from __future__ import annotations
 from typing import Dict
 
 from recommendflow_tpu_torch.ops.cuda import (embedding_bag, flash_attention,
-                                              grouped_topk, row_grad_combine,
-                                              sparse_apply, table_update)
+                                              grouped_topk, pooled_lookup,
+                                              row_grad_combine, sparse_apply,
+                                              table_update)
 
 COUNTERS = {"gather_rows": embedding_bag.gather_rows,
             "scatter_add_rows": embedding_bag.scatter_add_rows,
@@ -23,7 +24,9 @@ COUNTERS = {"gather_rows": embedding_bag.gather_rows,
             "rowwise_adagrad_update": table_update.rowwise_adagrad_update,
             "flash_attention": flash_attention.flash_attention,
             "grouped_score_max": grouped_topk.grouped_score_max,
-            "combine_row_grads": row_grad_combine.combine_row_grads}
+            "combine_row_grads": row_grad_combine.combine_row_grads,
+            "gather_owned": pooled_lookup.gather_owned,
+            "pooled_row_grads": pooled_lookup.pooled_row_grads}
 # the per-key dicts beside the totals
 _BY_KEY = {"gather_rows_by_row_bytes":
            embedding_bag.gather_rows.launches_by_row_bytes,

@@ -42,6 +42,7 @@ from recommendflow_tpu_torch.data.schema import (BatchSchema, FeatureSlot,
                                                  TableGroup)
 from recommendflow_tpu_torch.ops.cuda.embedding_bag import (
     gather_rows_op, scatter_add_rows)
+from recommendflow_tpu_torch.ops.cuda.pooled_lookup import MAX_BAGS, Bags
 from recommendflow_tpu_torch.ops.cuda.row_grad_combine import (
     combine_row_grads)
 
@@ -371,6 +372,26 @@ def lookup_feature(params: Dict[str, torch.Tensor], schema: BatchSchema,
     return pooled.reshape(pooled.shape[0], -1)
 
 
+def _sum_bags(group: TableGroup, group_slots: Sequence[FeatureSlot]):
+    """The bags of a dim group's fused ids (one a slot and hash branch, in
+    the fused layout's order) when every slot is sum-pooled and they fit
+    one kernel call; else None."""
+    if any(s.pooling != FeaturePooling.Sum for s in group_slots):
+        return None
+    start, length, pad = [], [], []
+    col = 0
+    for s in group_slots:
+        for h in range(s.num_hashes):
+            start.append(col)
+            length.append(s.max_len)
+            pad.append(group.offset_of(s.name, h))
+            col += s.max_len
+    if len(start) > MAX_BAGS:
+        return None
+    return Bags(tuple(start), tuple(length), tuple(pad),
+                tuple(s.num_hashes for s in group_slots))
+
+
 def embed_batch(params: Dict[str, torch.Tensor], schema: BatchSchema,
                 batch: Dict[str, torch.Tensor],
                 tower: Optional[str] = None,
@@ -383,7 +404,18 @@ def embed_batch(params: Dict[str, torch.Tensor], schema: BatchSchema,
     projection. Token and bert sequences are left to the text encoders that
     own them, as in the JAX package, and so is an image slot without a
     projection (a ViT image encoder owns it). `exclude` skips slots the
-    model embeds itself (Pdm's attention-pooled sequences)."""
+    model embeds itself (Pdm's attention-pooled sequences).
+
+    A group on a table row-sharded over several ranks (`mark_row_shard`)
+    whose slots are all sum-pooled takes
+    `parallel.sharded_embedding.gather_pooled_bags`, whose backward
+    exchanges pooled gradients: each slot's output is a split of the pooled
+    bags, so the backward is one concatenation. A mesh axis of one keeps
+    the unpooled lookup (`gather_local_rows`), whose table gradient is the
+    single table's to the bit, so that a world of one checks the mesh step
+    against the single card's; the pooled backward adds each row's terms
+    in another grouping, which three Dssm steps on an H100 carry to 2.2e-6
+    of a leaf's size."""
     out: Dict[str, torch.Tensor] = {}
     slots = _slots(schema, tower)
     for slot in slots:
@@ -398,8 +430,22 @@ def embed_batch(params: Dict[str, torch.Tensor], schema: BatchSchema,
     for dim, group_slots in _sparse_by_dim(slots, exclude).items():
         group = schema.groups[dim]
         sizes, fused = _fused_ids(schema, group_slots, batch)  # [B, sum(HL)]
-        emb = gather_group(params[f"dim{dim}"], group, fused,  # [B, sum, dim]
-                           wide_rows=batch.get(rows_key(dim)))
+        table, wide = params[f"dim{dim}"], batch.get(rows_key(dim))
+        shard = getattr(table, "row_shard", None)
+        bags = _sum_bags(group, group_slots) if wide is None and \
+            shard is not None and shard.mesh.size(shard.axis) > 1 else None
+        if bags is not None:
+            from recommendflow_tpu_torch.parallel.sharded_embedding import (
+                gather_pooled_bags)
+            pooled = gather_pooled_bags(table, shard, group, fused,
+                                        bags)              # [B, bags, dim]
+            parts = torch.split(pooled, [s.num_hashes for s in group_slots],
+                                dim=1)
+            for s, part in zip(group_slots, parts):
+                out[s.name] = part.reshape(part.shape[0], -1)
+            continue
+        emb = gather_group(table, group, fused,  # [B, sum, dim]
+                           wide_rows=wide)
         offset = 0
         for s, size in zip(group_slots, sizes):
             ids = batch[s.name]

@@ -92,8 +92,15 @@ def all_gather_list(x: torch.Tensor, group) -> List[torch.Tensor]:
 
 
 def all_gather_nograd(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's `x` concatenated along dim 0, in rank order."""
-    return torch.cat(all_gather_list(x, group))
+    """Every rank's `x` concatenated along dim 0, in rank order: gathered
+    straight into the result, or as a list and a cat on gloo."""
+    if dist.get_backend(group) == "gloo":
+        return torch.cat(all_gather_list(x, group))
+    x = x.contiguous()
+    out = x.new_empty((x.shape[0] * dist.get_world_size(group),)
+                      + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out
 
 
 def all_reduce_nograd(x: torch.Tensor, group, op=dist.ReduceOp.SUM
@@ -102,6 +109,21 @@ def all_reduce_nograd(x: torch.Tensor, group, op=dist.ReduceOp.SUM
     y = x.detach().clone().contiguous()
     dist.all_reduce(y, op=op, group=group)
     return y
+
+
+def reduce_scatter_nograd(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group's ranks of `x` [W*b, ...], this rank's b rows
+    in rank order: a reduce-scatter, or on gloo an all-reduce of `x` in
+    place and a slice of it."""
+    world = dist.get_world_size(group)
+    n = x.shape[0] // world
+    if dist.get_backend(group) == "gloo":
+        dist.all_reduce(x, group=group)
+        r = dist.get_rank(group)
+        return x[r * n:(r + 1) * n]
+    out = x.new_empty((n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    return out
 
 
 class _AllGather(torch.autograd.Function):

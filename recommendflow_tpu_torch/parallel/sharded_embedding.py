@@ -20,11 +20,28 @@ of the batch, the ids are all-gathered first and each rank keeps its own
 slice of the result (ops/embedding.py:gather_group calls it for a table
 that `shard_tables` marked).
 
+`gather_pooled_bags` is the embed pass's form for a dim group whose slots are
+all sum-pooled (ops/embedding.py:embed_batch picks it): the ids are
+all-gathered, each rank writes the rows its block owns, in the table's
+dtype and zeros elsewhere (`ops/cuda/pooled_lookup.py:gather_owned`), and a
+reduce-scatter gives each rank its own examples' rows, exactly (one owner
+an id), which it pools as the single table's lookup does, to the same
+bits. Only the pooled bags enter autograd: the backward all-gathers their
+gradient ([n, bags, dim], not [n, cols, dim]) and sums it into the owned
+rows (`pooled_row_grads`). Pooling on the owner before the exchange would
+move fewer bytes, but it adds a bag's rows in another order than the
+single table's pooling; at DLRM-DCNv2's batch of 65536 those roundings
+flip ReLUs in the top MLP and move the dense gradients by up to 5e-5 of
+their norms.
+
 Spans (utils/profiling.py:span, recorded under a profiler only):
-`shard.lookup` over `gather_local_rows`, counting the global `ids` looked
-up and the `exchange_bytes` its collectives hand NCCL (the all-gather's
-output and the all-reduce's buffer), and `shard.lookup_grad` over the
-backward's all-reduce of the rows' gradients, with its `exchange_bytes`.
+`shard.lookup` over `gather_local_rows` and `gather_pooled_bags`, counting the
+global `ids` looked up, the global batch's `bags` (the pooled form only)
+and the `exchange_bytes` its collectives hand NCCL (the all-gather's output
+and the all-reduce's or the reduce-scatter's input), and
+`shard.lookup_grad` over the backward's exchange (the all-reduce of the
+rows' gradients, or the all-gather of the pooled gradient), with its
+`exchange_bytes`.
 """
 from __future__ import annotations
 
@@ -33,9 +50,12 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
+from recommendflow_tpu_torch.config.proto import FeaturePooling
 from recommendflow_tpu_torch.data.schema import TableGroup
-from recommendflow_tpu_torch.parallel.distributed import (_AllReduceSum,
-                                                          all_gather_nograd)
+from recommendflow_tpu_torch.ops.cuda.pooled_lookup import (Bags, gather_owned,
+                                                            pooled_row_grads)
+from recommendflow_tpu_torch.parallel.distributed import (
+    _AllReduceSum, all_gather_nograd, reduce_scatter_nograd)
 from recommendflow_tpu_torch.parallel.mesh import Mesh, is_table_param
 from recommendflow_tpu_torch.utils.profiling import span
 
@@ -111,6 +131,77 @@ def gather_local_rows(table_shard: torch.Tensor, shard: RowShard,
               + rows.numel() * rows.element_size())
     n, r = flat.shape[0], mesh.rank(axis)
     return rows[r * n:(r + 1) * n].view(tuple(ids.shape) + (group.dim,))
+
+
+def _pool_rows(rows: torch.Tensor, ids: torch.Tensor, bags: Bags
+               ) -> torch.Tensor:
+    """This rank's rows [b, cols, dim] f32 and fused ids [b, cols] ->
+    [b, bags.count, dim]: each slot pooled as the single table's lookup
+    pools it (`pool_sequence` on [b, H, L, dim], pads masked), to the same
+    bits."""
+    from recommendflow_tpu_torch.ops.embedding import pool_sequence
+    out, j = [], 0
+    for h in bags.slots or (1,) * bags.count:
+        s, n = bags.start[j], bags.length[j]
+        e = rows[:, s:s + h * n].reshape(rows.shape[0], h, n, rows.shape[2])
+        mask = torch.stack([ids[:, s + k * n:s + (k + 1) * n] > bags.pad[j + k]
+                            for k in range(h)], dim=1)
+        out.append(pool_sequence(e, mask, FeaturePooling.Sum))
+        j += h
+    return torch.cat(out, dim=1)
+
+
+class _PooledBags(torch.autograd.Function):
+    """This rank's pooled bags [b, bags, dim] f32 from its block of the
+    table and the global batch's ids [W*b, cols]: each rank's owned rows
+    reduce-scattered in the table's dtype (exact: one owner an id), then
+    pooled. The backward all-gathers the pooled gradient under the
+    `shard.lookup_grad` span and sums it into the owned rows of a zero
+    block gradient of the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, everyone, bags, dim, group, rank):
+        logical = table.view(-1, dim)
+        start = rank * logical.shape[0]
+        owned = gather_owned(logical, everyone.view(-1), start)
+        rows = reduce_scatter_nograd(owned.view(everyone.shape + (dim,)),
+                                     group)
+        n = rows.shape[0]
+        ctx.save_for_backward(everyone)
+        ctx.meta = (table.shape, table.dtype, bags, dim, group, start)
+        return _pool_rows(rows.float(), everyone[rank * n:(rank + 1) * n],
+                          bags)
+
+    @staticmethod
+    def backward(ctx, g):
+        everyone, = ctx.saved_tensors
+        shape, dtype, bags, dim, group, start = ctx.meta
+        with span("shard.lookup_grad") as s:
+            g_all = all_gather_nograd(g, group)
+            s.add(exchange_bytes=g_all.numel() * g_all.element_size())
+        dtable = torch.zeros(shape, dtype=dtype, device=g.device)
+        pooled_row_grads(g_all, everyone, bags, start, dtable.view(-1, dim))
+        return dtable, None, None, None, None, None
+
+
+def gather_pooled_bags(table_shard: torch.Tensor, shard: RowShard,
+                       group: TableGroup, ids: torch.Tensor, bags: Bags
+                       ) -> torch.Tensor:
+    """This rank's fused ids [b, cols] (its rows of the global batch; every
+    rank passes the same shape) -> [b, bags.count, dim] f32, each bag's
+    valid ids' rows summed: the ids are all-gathered, each rank's owned
+    rows reduce-scattered to the examples' ranks and pooled there."""
+    mesh, axis = shard.mesh, shard.axis
+    with span("shard.lookup") as s:
+        everyone = all_gather_nograd(ids, mesh.group(axis))
+        pooled = _PooledBags.apply(
+            table_shard, everyone.to(torch.int32).contiguous(), bags,
+            group.dim, mesh.group(axis), mesh.rank(axis))
+        s.add(ids=everyone.numel(), bags=everyone.shape[0] * bags.count,
+              exchange_bytes=everyone.numel() * (
+                  everyone.element_size()
+                  + group.dim * table_shard.element_size()))
+    return pooled
 
 
 def shard_tables(params: Mapping[str, torch.Tensor], mesh: Mesh,

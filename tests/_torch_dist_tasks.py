@@ -94,6 +94,38 @@ def sharded_gather(rank, world, table, dim, gids, w):
             _np(local), _np(p.grad), tuple(p.shape))
 
 
+def embed_pass(rank, world, conf_path, tables, dim, batch, w):
+    """`embed_batch` of this rank's rows of `batch` with the dim-`dim`
+    table row-sharded (`mark_row_shard`) and the others whole, under a CPU
+    profiler, and the backward of sum(out[n] * w[n]) over the slots of `w`:
+    (every slot's output, the block's gradient, the `shard.*` spans'
+    counts)."""
+    from recommendflow_tpu_torch.config import Configuration
+    from recommendflow_tpu_torch.data.schema import compile_schema
+    from recommendflow_tpu_torch.ops.embedding import embed_batch
+    from recommendflow_tpu_torch.parallel.sharded_embedding import \
+        mark_row_shard
+    from recommendflow_tpu_torch.utils import profiling
+    m = make_mesh()
+    schema = compile_schema(Configuration(conf_path).features)
+    params = {k: _t(v) for k, v in tables.items()}
+    p = torch.nn.Parameter(params[f"dim{dim}"])
+    mark_row_shard(p, m, "dp")
+    params[f"dim{dim}"] = p
+    b = len(batch["label"]) // world
+    mine = {k: torch.from_numpy(v[rank * b:(rank + 1) * b])
+            for k, v in batch.items()}
+    profiling._SPANS.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = embed_batch(params, schema, mine)
+        sum((out[n] * torch.from_numpy(v[rank * b:(rank + 1) * b])).sum()
+            for n, v in w.items()).backward()
+    return ({n: _np(v) for n, v in out.items()}, _np(p.grad),
+            [(s.name, dict(s.counts)) for s in profiling.spans()
+             if s.name.startswith("shard.")])
+
+
 # ---------------------------------------------------------- sharded search
 def sharded_search(rank, world, spec, metric, corpus, queries, k, save=None,
                    load=None, kind="factory"):

@@ -26,7 +26,7 @@ SCRIPT = os.path.join(tp.ROOT, "chip_smoke.py")
 # every phase but the build and the timings, which need the card
 REHEARSED = ("gather_rows", "grouped_score_max", "scatter_add_rows",
              "rowwise_adagrad_update", "sparse_adagrad_apply",
-             "combine_row_grads", "flash_attention", "slice", "train", "ranking", "train_options",
+             "combine_row_grads", "pooled_lookup", "flash_attention", "slice", "train", "ranking", "train_options",
              "long_runs", "dispatch", "ranking_zoo",
              "attention_ranking", "text_recall", "simbert", "matching_zoo",
              "export_serve", "sq_search", "ann", "host_tier", "parallel",
@@ -92,6 +92,9 @@ def test_cpu_rehearsal_drives_every_phase(tmp_path):
     assert cas["stage2"]["hit@50"] == cas["stage1"]["hit@50"]
     assert cas["topk_check"]["score_rel_err"] <= 4e-6
     assert sorted(cas["seconds"]) == sorted(cas["launches_by_stage"])
+    pooled = phases["pooled_lookup"]   # DLRM-DCNv2's fields, cut in rows
+    assert pooled["fwd_bitwise"] and pooled["bwd_ulps"] <= 1.0
+    assert pooled["bwd_bitwise_across_calls"] and pooled["owned_ids"] > 0
     assert phases["gather_rows"]["bitwise_equal"] is True
     assert max(phases["grouped_score_max"]["max_abs_err"].values()) <= 1e-4
     assert {"u8_ip", "u8_l2"} <= set(phases["grouped_score_max"]["max_abs_err"])

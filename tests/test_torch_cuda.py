@@ -2054,6 +2054,44 @@ _WORLD_OF_ONE = textwrap.dedent('''
         "grad_bitwise": bool(torch.equal(a.grad.view(torch.int16),
                                          b.grad.view(torch.int16)))}
 
+    # 1b. the pooled lookup over NCCL (its reduce-scatter and all-gather)
+    # against the unpooled lookup and pooling of the same bags, dim 128
+    # bf16, one id in four a pad
+    from recommendflow_tpu_torch.config.proto import FeaturePooling
+    from recommendflow_tpu_torch.ops.cuda.pooled_lookup import Bags
+    from recommendflow_tpu_torch.ops.embedding import pool_sequence
+    from recommendflow_tpu_torch.parallel.sharded_embedding import (
+        RowShard, gather_local_rows, gather_pooled_bags)
+    class G128: dim = 128
+    lens, pads = (3, 1, 100, 27), (0, 10000, 20000, 30000)
+    starts = (0, 3, 4, 104)
+    block = (torch.rand((40000, 128), generator=gen, device=dev) * 0.1
+             - 0.05).to(torch.bfloat16)
+    local = torch.randint(0, 10000, (2048, sum(lens)), generator=gen,
+                          device=dev)
+    local[:, ::4] = 0
+    pid = torch.cat([torch.full((n,), p, dtype=torch.long, device=dev)
+                     for n, p in zip(lens, pads)])
+    bag_ids = (local + pid).to(torch.int32)
+    shard = RowShard(mesh, "dp", 40000)
+    a = block.clone().requires_grad_()
+    b = block.clone().requires_grad_()
+    pa = gather_pooled_bags(a, shard, G128, bag_ids, Bags(starts, lens, pads))
+    rows = gather_local_rows(b, shard, G128, bag_ids)
+    pb = torch.stack([pool_sequence(rows[:, s:s + n], local[:, s:s + n] > 0,
+                                    FeaturePooling.Sum)
+                      for s, n in zip(starts, lens)], 1)
+    wp = torch.randn(pa.shape, generator=gen, device=dev)
+    (pa * wp).sum().backward()
+    (pb * wp).sum().backward()
+    ga, gb = a.grad.float(), b.grad.float()
+    mag = torch.maximum(ga.abs(), gb.abs()).clamp(min=2.0 ** -126)
+    out["pooled"] = {
+        "values_bitwise": bool(torch.equal(pa, pb)),
+        "grad_ulps": float(((ga - gb).abs() / torch.exp2(
+            torch.floor(torch.log2(mag)) - 7)).max()),
+        "same_rows": bool(torch.equal(ga != 0, gb != 0))}
+
     # 2. the sharded searchers against the resident ones
     from recommendflow_tpu_torch.retrieval import index_factory
     rng = np.random.default_rng(1)
@@ -2132,9 +2170,10 @@ _WORLD_OF_ONE = textwrap.dedent('''
 @pytest.fixture(scope="module")
 def world_of_one():
     """One process of a world of one over NCCL (a process of its own: the
-    group must not outlive these tests): the sharded gather, the sharded
-    searchers, three mesh steps, each beside its single-card counterpart,
-    and the mesh step graphed beside eager. Its JSON result."""
+    group must not outlive these tests): the sharded gather, the pooled
+    lookup beside the unpooled, the sharded searchers, three mesh steps,
+    each beside its single-card counterpart, and the mesh step graphed
+    beside eager. Its JSON result."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     root = os.path.abspath(tp.ROOT)
@@ -2153,6 +2192,17 @@ def test_nccl_world_of_one_sharded_gather_is_the_single_gather(world_of_one):
     assert world_of_one["backend"] == "nccl"
     assert world_of_one["gather"] == {"rows_bitwise": True,
                                       "grad_bitwise": True}
+
+
+def test_nccl_world_of_one_pooled_lookup_matches_the_unpooled(world_of_one):
+    """`gather_pooled_bags` through NCCL's reduce-scatter and all-gather
+    against `gather_local_rows` and `pool_sequence` of each bag: values
+    bitwise (the same rows, pooled by the same operation), the bf16 block
+    gradient within one rounding (both round each id's term to bf16 and sum
+    in f32, in other groupings), on the same rows."""
+    got = world_of_one["pooled"]
+    assert got["values_bitwise"] and got["grad_ulps"] <= 1.0 \
+        and got["same_rows"], got
 
 
 def test_nccl_world_of_one_sharded_search_is_the_resident_search(
@@ -2427,3 +2477,145 @@ def test_split_step_combines_once_a_step(cuda):
     assert rgc.combine_row_grads.launches_by_tables[2] == by.get(2, 0) + 8
     (st,) = t.graph_stats()["train"]
     assert st["launches"]["combine_row_grads_by_tables"] == {2: 1}
+
+
+# ----------------------------------- the row-sharded lookup's pooled exchange
+def _pooled_case(cuda, dtype, dim, n=4096, lengths=(3, 1, 100, 27, 8, 12),
+                 seed=0):
+    """Rank 1's block of a four-rank table of one field per bag: (block
+    [rows, dim], fused ids [n, sum(lengths)], bags, start). Each bag's ids
+    are Zipf(1.2) over its field of 6000 rows: the pad row (the field's
+    first) most often, then the next, hot across many bags. Field 0 lies
+    below the block, field 2 (the 100-id bag's) inside it, fields 1 and 3
+    across its start, 4 and 5 above it. Example 0's bag 3 holds the block's
+    edge ids (start - 1, start, start + rows - 1, start + rows), its pad
+    and an id below its pad."""
+    from recommendflow_tpu_torch.ops.cuda.pooled_lookup import Bags
+    rng = np.random.default_rng(seed)
+    nb = len(lengths)
+    field = 6000
+    rows = field * nb // 4
+    start = rows
+    pads = [j * field for j in range(nb)]
+    pads[3] = start - 3           # a field across the block's start
+    cols = [(rng.zipf(1.2, (n, ln)) - 1) % field + p
+            for ln, p in zip(lengths, pads)]
+    ids = np.concatenate(cols, axis=1).astype(np.int32)
+    c3 = sum(lengths[:3])
+    ids[0, c3:c3 + 6] = [start - 1, start, start + rows - 1, start + rows,
+                         pads[3], pads[3] - 1]
+    starts = tuple(int(x) for x in np.cumsum((0,) + tuple(lengths[:-1])))
+    bags = Bags(starts, tuple(lengths), tuple(pads))
+    block = (torch.rand((rows, dim), generator=torch.Generator().manual_seed(
+        seed)) * 0.1 - 0.05).to(dtype).to(cuda)
+    return block, torch.from_numpy(ids).to(cuda), bags, start
+
+
+POOLED_FORMS = [(torch.bfloat16, 128), (torch.float32, 128),
+                (torch.bfloat16, 8), (torch.float32, 12), (torch.bfloat16, 300),
+                (torch.float32, 264)]
+
+
+@pytest.mark.parametrize("dtype,dim,view", [
+    (torch.bfloat16, 128, 0), (torch.float32, 12, 0), (torch.bfloat16, 12, 0),
+    (torch.bfloat16, 3, 0), (torch.float32, 3, 0), (torch.bfloat16, 128, 1)])
+def test_gather_owned_kernel_against_plain(cuda, dtype, dim, view):
+    """Each id's row where the block owns it, zeros elsewhere: bitwise the
+    plain version, with 16-, 8-, 4- and 2-byte words (rows of 256, 48, 24,
+    6 and 12 bytes; a block one row into its storage), over Zipf-hot rows,
+    foreign ids on both sides and the block's edge ids."""
+    from recommendflow_tpu_torch.ops.cuda import pooled_lookup as pl
+    block, ids, _, start = _pooled_case(cuda, dtype, dim)
+    if view:
+        block = torch.cat([block[:1], block])[1:]
+    flat = ids.reshape(-1).contiguous()
+    before = pl.gather_owned.launches
+    got = pl.gather_owned(block, flat, start)
+    want = pl.gather_owned_plain(block, flat, start)
+    torch.cuda.synchronize()
+    assert pl.gather_owned.launches == before + 1
+    assert got.dtype == dtype and got.shape == (flat.shape[0], dim)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16
+                                 else torch.int32))
+    local = flat.long() - start
+    mine = (local >= 0) & (local < block.shape[0])
+    assert 0 < int(mine.sum()) < flat.shape[0]
+    assert not got[~mine].any()
+
+
+@pytest.mark.parametrize("dtype,dim", POOLED_FORMS)
+def test_pooled_row_grads_kernel_against_plain(cuda, dtype, dim):
+    """The backward against the exact sums (each owned valid id's bag
+    gradient rounded to the table's dtype, the terms summed in float64):
+    bf16 rows within one rounding; f32 rows within 2e-6 of max(1, max|sum|)
+    for sums of up to ~32,000 terms of ~0.01 whose partial sums reach ~3
+    (the kernel's order, spans of 256 then carries over eight warps, read
+    at most 5.1e-7 on 5,120 such sums drawn on the host; one sum in batch
+    order reads up to 8.4e-6); every other row zero, and bitwise across
+    two calls (no float atomics). The hot row of the 100-id bag's field
+    takes some 32,000 ids, a run across ~120 spans of 256 sorted
+    positions."""
+    from recommendflow_tpu_torch.ops.cuda import pooled_lookup as pl
+    block, ids, bags, start = _pooled_case(cuda, dtype, dim)
+    g = torch.randn((ids.shape[0], bags.count, dim), device=cuda) * 0.01
+    local = ids.long() - start
+    bag, pad = bags.columns(cuda)
+    keep = (ids > pad) & (local >= 0) & (local < block.shape[0])
+    assert int(torch.bincount(local[keep]).max()) > 20000
+    grads = []
+    for _ in range(2):
+        grad = torch.zeros_like(block)
+        before = pl.pooled_row_grads.launches
+        pl.pooled_row_grads(g, ids, bags, start, grad)
+        assert pl.pooled_row_grads.launches == before + 1
+        grads.append(grad)
+    example = torch.arange(ids.shape[0], device=cuda)[:, None]
+    terms = g[example.expand_as(ids)[keep], bag.expand_as(ids)[keep]]
+    exact = torch.zeros(block.shape, dtype=torch.float64, device=cuda
+                        ).index_add_(0, local[keep],
+                                     terms.to(dtype).double())
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0].view(torch.int8), grads[1].view(torch.int8))
+    touched = torch.zeros(block.shape[0], dtype=torch.bool, device=cuda)
+    touched[local[keep]] = True
+    assert not grads[0][~touched].any()
+    got, ref = grads[0][touched].double(), exact[touched]
+    if dtype == torch.bfloat16:
+        assert tp.bf16_ulp_err(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy()) <= 1.0
+    else:
+        err = float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+        assert err <= 2e-6, err
+
+
+def test_pooled_lookup_kernels_capture_into_a_graph(cuda):
+    """Both calls captured into one CUDA graph: each replay bitwise the
+    eager calls on new inputs copied into the captured buffers."""
+    from recommendflow_tpu_torch.ops.cuda import pooled_lookup as pl
+    block, ids, bags, start = _pooled_case(cuda, torch.bfloat16, 128, n=512)
+    g = torch.randn((512, bags.count, 128), device=cuda) * 0.01
+    grad = torch.zeros_like(block)
+
+    def both():
+        grad.zero_()
+        return pl.gather_owned(block, ids.view(-1), start), \
+            pl.pooled_row_grads(g, ids, bags, start, grad)
+    both()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = both()
+    for seed in (1, 2):
+        _, new_ids, _, _ = _pooled_case(cuda, torch.bfloat16, 128, n=512,
+                                        seed=seed)
+        ids.copy_(new_ids)
+        g.copy_(torch.randn_like(g) * 0.01)
+        graph.replay()
+        got_out, got_grad = out.clone(), grad.clone()
+        want_out, want_grad = both()
+        torch.cuda.synchronize()
+        assert torch.equal(got_out, want_out)
+        assert torch.equal(got_grad.view(torch.int16),
+                           want_grad.view(torch.int16))

@@ -367,10 +367,15 @@ def test_model_spans_record_only_under_a_profiler():
 
 
 def test_lookup_spans_count_the_exchange(pool2):
+    """Every slot is sum-pooled, so the lookup takes the pooled form:
+    forward, the ids' all-gather and the reduce-scatter's input, each id's
+    row in the table's dtype (f32 here); backward, the all-gather of the
+    pooled gradient, one f32 row a bag of the global batch."""
     rows = 3
     for spans in pool2.run(dt.lookup_spans, rows):
         assert [n for n, _ in spans] == ["shard.lookup", "shard.lookup_grad"]
         ids = 2 * rows * sum(dt.MULTI_HOT)        # the global batch's ids
-        assert spans[0][1] == {"ids": ids,
+        bags = 2 * rows * len(dt.SPARSE)          # and its bags
+        assert spans[0][1] == {"ids": ids, "bags": bags,
                                "exchange_bytes": ids * 4 + ids * dt.DIM * 4}
-        assert spans[1][1] == {"exchange_bytes": ids * dt.DIM * 4}
+        assert spans[1][1] == {"exchange_bytes": bags * dt.DIM * 4}
